@@ -1,0 +1,335 @@
+"""Cube-face plane-sweep raycast (port of kinfu_tpu/ops/pallas_raycast.py),
+and kernels K4 (the sweep) and K5 (the resample onto the camera grid).
+
+Per cube face, rays through the virtual face pixel (i, j) have primed
+direction d' = ((j-c)/f, (i-c)/f, 1). Marching in t = z' - o'_z, one
+nearest-voxel sample per primed plane, a ray records the refined front
+(+ to -) crossing, a back (- to +) crossing, or an outward exit, and stops
+there. The face-grid hit field is shaded in plain PyTorch (`face_fields`)
+and resampled to the camera grid.
+
+K4 (`sweep_rays`, csrc/sweep_rays.cu) replaces `_sweep_kernel`
+(kinfu_tpu/ops/pallas_raycast.py:114-284): one CUDA thread per face ray,
+marching every primed plane in order through the natural volume via the
+face's signed permutation. It keeps the TPU kernel's semantics: the
+`t_cover` bound of its row windows (L161), the [1, N-2] validity bounds,
+the NaN carry of the previous sample, the front/back/exit rules
+(L254-273), the early exit once a ray has resolved, and the static tile
+ownership (8x128 face tiles with any pixel inside the padded cone). It
+drops what only skipped work: the occupancy pooling, the summed-area
+tables and the visit lists (L321-443).
+
+K5 (`resample_face`, csrc/resample_face.cu) replaces `_resample_kernel`
+(L579-624): one thread per camera pixel takes the nearest face pixel.
+
+`sweep_rays_plain` and `resample_face_plain` are their plain PyTorch
+versions.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from kinfu_tpu_torch.config import KinFuParams
+from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
+from kinfu_tpu_torch.geometry.se3 import Pose
+from kinfu_tpu_torch.numerics import recip, rint_index
+from kinfu_tpu_torch.ops import kernels
+from kinfu_tpu_torch.ops.face_integrate import prime
+from kinfu_tpu_torch.ops.facewarp import (
+    FaceFrame,
+    face_params,
+    primed_offset,
+    primed_voxel_size,
+)
+from kinfu_tpu_torch.volume.tsdf import SHORTMAX
+
+_INF = 1e30
+#: row windows of the TPU sweep per (tile, plane); they bound `t_cover`
+_N_WIN = 4
+#: extra face pixels beyond the +-45 deg ownership cone that still march
+_OWN_PAD_PX = 2.0
+
+
+class RaySpec(NamedTuple):
+    """Static geometry of the virtual raycast face grid."""
+
+    size: int  # square face, pixels (multiple of 128)
+    focal: float  # virtual focal length, pixels
+
+    @property
+    def centre(self) -> float:
+        return (self.size - 1) / 2.0
+
+
+def default_ray_spec() -> RaySpec:
+    return RaySpec(size=640, focal=261.0)
+
+
+def prime_geometry(frame: FaceFrame, params: KinFuParams, device):
+    """(D [3,3], offset [3], primed voxel size) of a face frame."""
+    D = torch.as_tensor(frame.D, dtype=torch.float32, device=device)
+    off = torch.as_tensor(primed_offset(frame, params.volume_dims, params.voxel_size),
+                          device=device)
+    return D, off, primed_voxel_size(frame, params.voxel_size)
+
+
+def ray_params(org_p: torch.Tensor, vs_p, spec: RaySpec,
+               gate: torch.Tensor) -> torch.Tensor:
+    """K4's device parameter block f32[16]: primed origin (3), primed voxel
+    size (3), face focal, face centre, t_cover, ownership tan bound, gate
+    (1 = march, 0 = write no events), 5 spare."""
+    dev = org_p.device
+    f32 = torch.float32
+    vs = torch.tensor(vs_p, dtype=f32, device=dev)
+    f = torch.tensor(spec.focal, dtype=f32, device=dev)
+    # farthest plane the TPU kernel's 4 row windows cover (L161), in its
+    # float32 operation order
+    t_cover = torch.tensor((8.0 * _N_WIN - 9.0) / 7.0, dtype=f32, device=dev) * f * vs[1] * 0.99
+    tail = torch.tensor([spec.centre, 1.0 + _OWN_PAD_PX / spec.focal], dtype=f32, device=dev)
+    return torch.cat([org_p.float(), vs, f.reshape(1), tail[:1], t_cover.reshape(1),
+                      tail[1:], gate.reshape(1).float(), torch.zeros(5, device=dev)])
+
+
+def _own_mask(spec: RaySpec, own_tan: torch.Tensor, device) -> torch.Tensor:
+    """[F, F] static tile ownership: 8x128 tiles with any pixel inside the
+    padded +-45 deg cone (pallas_raycast.py:397-403)."""
+    F = spec.size
+    pix = torch.arange(F, dtype=torch.float32, device=device)
+    tan = ((pix - spec.centre) * recip(spec.focal)).abs()
+    ok_1d = tan <= own_tan
+    row_ok = ok_1d.reshape(F // 8, 8).any(dim=1).repeat_interleave(8)
+    col_ok = ok_1d.reshape(F // 128, 128).any(dim=1).repeat_interleave(128)
+    return row_ok[:, None] & col_ok[None, :]
+
+
+def sweep_rays_plain(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
+                     spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4: (hit_t, back_t) [F, F] f32 in the
+    t = z' - o'_z parameterization, +inf (1e30) where there is no event."""
+    t_p = prime(tsdf, frame)
+    Zp, Yp, Xp = t_p.shape
+    dev = tsdf.device
+    F = spec.size
+    ox, oy, oz, vsx, vsy, vsz = prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]
+    f, c, t_cover, own_tan, gate = prm[6], prm[7], prm[8], prm[9], prm[10]
+    inv_vsx = 1.0 / vsx
+    inv_vsy = 1.0 / vsy
+    pix = torch.arange(F, dtype=torch.float32, device=dev)
+    # the face focal is static in the JAX package: reciprocal multiply
+    dy = ((pix - c) * (1.0 / f))[:, None]
+    dx = ((pix - c) * (1.0 / f))[None, :]
+    inf = torch.tensor(_INF, dtype=torch.float32, device=dev)
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=dev)
+    ht = inf.expand(F, F).clone()
+    bt = inf.expand(F, F).clone()
+    fp = nan.expand(F, F).clone()
+    alive = _own_mask(spec, own_tan, dev) & (gate != 0)
+    flat = t_p.reshape(-1)
+
+    for zg in range(Zp):
+        t_m = float(zg) * vsz - oz
+        t_ok = (t_m > 1e-6) & (t_m <= t_cover)
+        ts = torch.clamp(t_m, min=1e-6)
+        yv = (oy + dy * ts) * inv_vsy
+        xv = (ox + dx * ts) * inv_vsx
+        yi = rint_index(yv)
+        xi = rint_index(xv)
+        lin = (zg * Yp + yi.clamp(0, Yp - 1)) * Xp + xi.clamp(0, Xp - 1)
+        f_new = flat[lin].float() * (1.0 / SHORTMAX)
+        yok = (yi >= 1) & (yi < Yp - 1)
+        xok = (xi >= 1) & (xi < Xp - 1)
+        valid = t_ok & (1 <= zg < Zp - 1) & yok & xok
+
+        live = alive & (ht >= _INF) & (bt >= _INF)
+        # a NaN previous sample fails both comparisons (no event)
+        front = live & valid & (fp > 0.0) & (f_new < 0.0)
+        back = live & valid & (fp < 0.0) & (f_new > 0.0)
+        denom = fp - f_new
+        frac = fp / torch.where(denom.abs() < 1e-30, torch.full_like(denom, 1e-30), denom)
+        ht = torch.where(front, t_m - vsz + vsz * frac, ht)
+        bt = torch.where(back, t_m, bt)
+        exit_out = (
+            ((xi >= Xp - 1) & (dx > 0))
+            | ((xi <= 0) & (dx < 0))
+            | ((yi >= Yp - 1) & (dy > 0))
+            | ((yi <= 0) & (dy < 0))
+        ) & t_ok
+        bt = torch.where(live & ~front & ~back & exit_out, t_m, bt)
+        fp = torch.where(valid, f_new, nan)
+    return ht, bt
+
+
+def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
+               spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: march every face ray through the volume seen from `frame`. CPU
+    tensors take the plain version; CUDA tensors launch csrc/sweep_rays.cu."""
+    if tsdf.device.type == "cpu":
+        return sweep_rays_plain(tsdf, frame, prm, spec)
+    kernels.library()
+    Z, Y, X = tsdf.shape
+    kernels.check_cuda("sweep_rays", tsdf, prm)
+    kernels.check("sweep_rays", tsdf, torch.int16, (Z, Y, X))
+    kernels.check("sweep_rays", prm, torch.float32, (16,))
+    F = spec.size
+    hit = torch.empty((F, F), dtype=torch.float32, device=tsdf.device)
+    back = torch.empty((F, F), dtype=torch.float32, device=tsdf.device)
+    kernels.launch(
+        "kinfu_sweep_rays",
+        kernels.ptr(tsdf), kernels.ptr(prm), kernels.ptr(hit), kernels.ptr(back),
+        Z, Y, X, *frame.axes, int(frame.flip), F,
+    )
+    return hit, back
+
+
+def face_fields(hit: torch.Tensor, back: torch.Tensor, origin_p: torch.Tensor,
+                spec: RaySpec):
+    """(t_valid, normal' [F,F,3], nvalid) on the face grid
+    (pallas_raycast.py:482-576): 3x3 smoothing of t, normals from central
+    differences oriented toward the camera, and the silhouette fill. Plain
+    PyTorch, with neighbours from `torch.roll` as JAX takes them from
+    `jnp.roll`."""
+    F = spec.size
+    dev = hit.device
+    inf = torch.tensor(_INF, dtype=torch.float32, device=dev)
+    ok = (hit < back) & (hit < _INF)
+    t = torch.where(ok, hit, inf)
+
+    pix = torch.arange(F, dtype=torch.float32, device=dev)
+    dxr = ((pix - spec.centre) * recip(spec.focal))[None, :]
+    dyr = ((pix - spec.centre) * recip(spec.focal))[:, None]
+
+    def sh(a, di, dj):
+        return torch.roll(a, shifts=(-di, -dj), dims=(0, 1))
+
+    okf32 = ok.float()
+    tz = torch.clamp(hit, max=1e30) * okf32
+    wsum = torch.zeros_like(okf32)
+    tsum = torch.zeros_like(tz)
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            wsum = wsum + sh(okf32, di, dj)
+            tsum = tsum + sh(tz, di, dj)
+    t_s = tsum / torch.clamp(wsum, min=1.0) * okf32
+
+    vx = origin_p[0] + dxr * t_s
+    vy = origin_p[1] + dyr * t_s
+    vz = origin_p[2] + t_s
+    v = torch.stack([vx, vy, vz], dim=-1)
+
+    ok_r = sh(ok, 0, 1) & sh(ok, 0, -1) & sh(ok, 1, 0) & sh(ok, -1, 0) & ok
+    du = sh(v, 0, 1) - sh(v, 0, -1)
+    dv = sh(v, 1, 0) - sh(v, -1, 0)
+    n = torch.linalg.cross(du, dv, dim=-1)
+    tmag = torch.clamp(t, min=1e-6)
+    disc = torch.maximum((sh(t, 0, 1) - sh(t, 0, -1)).abs(),
+                         (sh(t, 1, 0) - sh(t, -1, 0)).abs())
+    ok_n = ok_r & (disc < 0.05 * tmag)
+    nn = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    ok_n = ok_n & (nn[..., 0] > 1e-20)
+    n = n / torch.clamp(nn, min=1e-30)
+    d3 = torch.stack([dxr.expand(F, F), dyr.expand(F, F),
+                      torch.ones((F, F), dtype=torch.float32, device=dev)], dim=-1)
+    flip = (n * d3).sum(dim=-1) > 0
+    sign = 1.0 - 2.0 * flip.float()
+    n = n * sign[..., None] * ok_n[..., None].float()
+
+    nsum = torch.zeros_like(n)
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            nsum = nsum + sh(n, di, dj)
+    nsn = torch.linalg.vector_norm(nsum, dim=-1, keepdim=True)
+    n_fill = nsum / torch.clamp(nsn, min=1e-30)
+    usable = nsn[..., 0] > 1e-20
+    rim = ok & ~ok_n & usable
+    n = torch.where(rim[..., None], n_fill, n)
+    t_avg = tsum / torch.clamp(wsum, min=1.0)
+    fill = ~ok & (wsum > 0.5) & usable
+    t = torch.where(fill, t_avg, t)
+    n = torch.where(fill[..., None], n_fill, n)
+    return t, n, ok_n | rim | fill
+
+
+def resample_face_plain(t_f: torch.Tensor, n_f: torch.Tensor, prm: torch.Tensor,
+                        intr: Intrinsics) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: nearest-face-pixel resample of
+    (t [F,F], normal' [F,F,3]) onto the camera grid; +inf (1e30) and 0
+    outside the face or where the gate is 0."""
+    F = t_f.shape[0]
+    dev = t_f.device
+    h, w = intr.height, intr.width
+    a = prm[:9]
+    fx, fy, cx, cy, gate, f, c = prm[9], prm[10], prm[11], prm[12], prm[13], prm[14], prm[15]
+    # the focal lengths are static in the JAX package: reciprocal multiplies
+    lx = ((torch.arange(w, dtype=torch.float32, device=dev) - cx) * (1.0 / fx))[None, :]
+    ly = ((torch.arange(h, dtype=torch.float32, device=dev) - cy) * (1.0 / fy))[:, None]
+    dpx = a[0] * lx + a[1] * ly + a[2]
+    dpy = a[3] * lx + a[4] * ly + a[5]
+    dpz = a[6] * lx + a[7] * ly + a[8]
+    fwd = dpz > 1e-6
+    zs = torch.where(fwd, dpz, torch.ones_like(dpz))
+    fu = rint_index(f * dpx / zs + c)
+    fv = rint_index(f * dpy / zs + c)
+    inb = fwd & (fu >= 0) & (fu < F) & (fv >= 0) & (fv < F) & (gate != 0)
+    lin = fv.clamp(0, F - 1) * F + fu.clamp(0, F - 1)
+    t = torch.where(inb, t_f.reshape(-1)[lin], torch.full_like(dpz, _INF))
+    n = torch.where(inb[..., None], n_f.reshape(-1, 3)[lin], torch.zeros((), device=dev))
+    return t, n
+
+
+def resample_face(t_f: torch.Tensor, n_f: torch.Tensor, prm: torch.Tensor,
+                  intr: Intrinsics) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: camera-grid (t [H,W], normal' [H,W,3]). CPU tensors take the
+    plain version; CUDA tensors launch csrc/resample_face.cu."""
+    if t_f.device.type == "cpu":
+        return resample_face_plain(t_f, n_f, prm, intr)
+    kernels.library()
+    F = t_f.shape[0]
+    kernels.check_cuda("resample_face", t_f, n_f, prm)
+    kernels.check("resample_face", t_f, torch.float32, (F, F))
+    kernels.check("resample_face", n_f, torch.float32, (F, F, 3))
+    kernels.check("resample_face", prm, torch.float32, (16,))
+    h, w = intr.height, intr.width
+    t = torch.empty((h, w), dtype=torch.float32, device=t_f.device)
+    n = torch.empty((h, w, 3), dtype=torch.float32, device=t_f.device)
+    kernels.launch(
+        "kinfu_resample_face",
+        kernels.ptr(t_f), kernels.ptr(n_f), kernels.ptr(prm), kernels.ptr(t),
+        kernels.ptr(n), h, w, F,
+    )
+    return t, n
+
+
+def face_pass(tsdf: torch.Tensor, frame: FaceFrame, cam2vol: Pose, intr: Intrinsics,
+              params: KinFuParams, spec: RaySpec, gate: torch.Tensor):
+    """Sweep (K4) + shade + resample (K5) for one face
+    (pallas_raycast.py:673-718). Returns camera-grid (vertex [H,W,3] and
+    normal [H,W,3] in the original volume frame, ok [H,W], own [H,W])."""
+    R, org = cam2vol
+    dev = tsdf.device
+    D, off, vs_p = prime_geometry(frame, params, dev)
+    org_p = D @ org + off
+
+    hit, back = sweep_rays(tsdf, frame, ray_params(org_p, vs_p, spec, gate), spec)
+    t_f, n_f, _ = face_fields(hit, back, org_p, spec)
+
+    A = D @ R  # camera pixel ray -> primed direction
+    t_cam, n_cam_p = resample_face(t_f, n_f.contiguous(), face_params(A, intr, gate, spec),
+                                   intr)
+
+    # exact exclusive ownership of camera pixels (face_frames partition)
+    d_p = intr.pixel_rays(dev) @ A.T
+    adx, ady, dz = d_p[..., 0].abs(), d_p[..., 1].abs(), d_p[..., 2]
+    own_x = (adx < dz) if frame.gt_x else (adx <= dz)
+    own_y = (ady < dz) if frame.gt_y else (ady <= dz)
+    own = (dz > 0) & own_x & own_y
+
+    ok = t_cam < _INF
+    tsafe = torch.where(ok, t_cam, torch.zeros_like(t_cam))
+    p_p = org_p + d_p / torch.clamp(dz, min=1e-9)[..., None] * tsafe[..., None]
+    # unprime: p = D^T (p' - off), n = D^T n'
+    p_v = (p_p - off) @ D
+    n_v = n_cam_p @ D
+    return p_v, n_v, ok, own

@@ -1,0 +1,152 @@
+"""K3's plain version (kinfu_tpu_torch/ops/face_integrate.py::sweep_face_plain,
+driven through integrate_warped) against the JAX package's interpret-mode
+`integrate_warped` at 128^3: int16 TSDF, int16 weight and int32 colour
+equal, for explicit faces and for "auto".
+
+Every case starts from a random prior volume (seeded numpy), so the update
+math runs on old values and saturated weights, not only on an empty grid.
+The JAX side runs without FMA contraction (tests/torch_jaxref.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_jaxref
+from kinfu_tpu_torch.config import tiny_params
+from kinfu_tpu_torch.data.synthetic import default_test_scene
+from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
+from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+from kinfu_tpu_torch.ops import face_integrate as tfi
+from kinfu_tpu_torch.ops.facewarp import FaceSpec, face_frames
+from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume
+
+torch.set_num_threads(2)
+
+INTR_T = (160, 120, 140.0, 140.0, 79.5, 59.5)
+INTR = Intrinsics(*INTR_T)
+PARAMS = tiny_params(128)
+PARAMS_KW = (("pyramid_height", 1), ("icp_iters", (4,)), ("volume_dims", (128, 128, 128)))
+SPEC_T = (256, 104.0, 6)
+SPEC = FaceSpec(*SPEC_T)
+ALL_FACES = tuple(f.name for f in face_frames())
+
+
+def _pose(ry_deg: float, rx_deg: float = 0.0, t=(0.1, -0.05, 0.2)) -> np.ndarray:
+    a, b = np.radians(ry_deg), np.radians(rx_deg)
+    Ry = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    Rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = Ry @ Rx
+    T[:3, 3] = t
+    return T
+
+
+#: (name, camera pose, faces): forward on +z, tilted over +z/-x with the
+#: device face gating, backward on -z from inside the volume
+CASES = (
+    ("forward", _pose(0.0), ("+z",)),
+    ("tilted_auto", _pose(40.0), "auto"),
+    ("backward", _pose(180.0, t=(0.1, -0.05, 2.4)), ("-z",)),
+)
+
+
+def _prior(seed: int):
+    """Random int16 TSDF, weights up to and at the cap, random colours."""
+    rng = np.random.default_rng(seed)
+    shape = (128, 128, 128)
+    return (
+        rng.integers(-32767, 32768, shape).astype(np.int16),
+        rng.integers(0, PARAMS.tsdf_max_weight + 1, shape).astype(np.int16),
+        rng.integers(0, 1 << 24, shape).astype(np.int32),
+    )
+
+
+def _frame(T):
+    depth, color = default_test_scene().render_frame(T, INTR)
+    return (depth * np.float32(0.001)).astype(np.float32), color
+
+
+def _vol2cam(T):
+    cam = pose_from_matrix(torch.as_tensor(T))
+    volp = pose_from_matrix(torch.as_tensor(PARAMS.volume_pose))
+    return compose(inverse(cam), volp)
+
+
+def _port(vol_np, T, faces):
+    depth_m, color = _frame(T)
+    vol = TSDFVolume(*(torch.as_tensor(a.copy()) for a in vol_np))
+    return tfi.integrate_warped(vol, torch.as_tensor(depth_m), torch.as_tensor(color),
+                                _vol2cam(T), INTR, PARAMS, spec=SPEC, faces=faces)
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    calls = []
+    for k, (_, T, faces) in enumerate(CASES):
+        depth_m, color = _frame(T)
+        v2c = _vol2cam(T)
+        calls.append(("integrate_warped", dict(
+            vol=_prior(k), depth_m=depth_m, color_rgb=color, R=v2c.R.numpy(),
+            t=v2c.t.numpy(), intr=INTR_T, params_kw=PARAMS_KW, spec=SPEC_T, faces=faces)))
+    v2c = _vol2cam(CASES[1][1])
+    calls.append(("faces_needed", dict(R=v2c.R.numpy(), t=v2c.t.numpy(), intr=INTR_T)))
+    return torch_jaxref.run(calls)
+
+
+@pytest.mark.parametrize("k", range(len(CASES)), ids=[c[0] for c in CASES])
+def test_integrate_matches_jax_exactly(jax_refs, k):
+    _, T, faces = CASES[k]
+    prior = _prior(k)
+    vol = _port(prior, T, faces)
+    ref = jax_refs[k]
+    for name, got, want in zip(("tsdf", "weight", "colour"), vol, ref):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    changed = (vol.weight.numpy() != prior[1]).sum()
+    assert changed > 10_000, changed
+
+
+def test_faces_needed_matches_jax(jax_refs):
+    flags = tfi.faces_needed(_vol2cam(CASES[1][1]), INTR)
+    want = jax_refs[-1]
+    assert [bool(f) for f in flags] == [want[n] for n in ALL_FACES]
+    assert 1 < sum(want.values()) < 6
+
+
+def test_auto_equals_all_faces():
+    """The device flags only skip faces that would update nothing."""
+    T = CASES[1][1]
+    a = _port(_prior(1), T, "auto")
+    b = _port(_prior(1), T, ALL_FACES)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_face_ownership_exclusive():
+    """Each voxel is owned by one face: on an empty volume the six single
+    sweeps update disjoint voxel sets, and all six together update every
+    voxel at most once."""
+    T = _pose(45.0, -35.0)
+    zero = tuple(a.numpy() for a in create_volume(PARAMS.volume_dims))
+    seen = np.zeros((128, 128, 128), np.int32)
+    faces_hit = 0
+    for name in ALL_FACES:
+        w = _port(zero, T, (name,)).weight.numpy()
+        seen += w > 0
+        faces_hit += int((w > 0).sum() > 1000)
+    assert seen.max() == 1
+    assert faces_hit >= 3, faces_hit
+    w_all = _port(zero, T, ALL_FACES).weight.numpy()
+    assert w_all.max() == 1
+    np.testing.assert_array_equal(w_all > 0, seen > 0)
+
+
+def test_sweep_gate_off_leaves_volume():
+    T = CASES[0][1]
+    depth_m, color = _frame(T)
+    prior = _prior(5)
+    vol = TSDFVolume(*(torch.as_tensor(a.copy()) for a in prior))
+    tfi.integrate_face(vol, face_frames()[0], torch.as_tensor(depth_m),
+                       tfi.pack_rgb(torch.as_tensor(color)), _vol2cam(T), INTR, PARAMS,
+                       SPEC, torch.tensor(False))
+    for got, want in zip(vol, prior):
+        np.testing.assert_array_equal(got.numpy(), want)
