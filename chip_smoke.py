@@ -4,20 +4,30 @@
 Phases; any failure exits non-zero before the result line:
   1. report the card (torch and nvidia-smi);
   2. build the CUDA kernels of kinfu_tpu_torch/csrc from this checkout;
-  3. hold every kernel on the fused step's path (K2 build_face, K3
-     face_integrate, K4 sweep_rays, K5 resample_face) against its plain
-     PyTorch version at the main path's shapes (a real frame of the
-     synthetic orbit, a 512^3 volume fused from 3 frames; all six cube
-     faces seen from the orbit pose, and each face seen from the volume's
-     centre looking along it), and time both with CUDA events;
+  3. hold every kernel on the step's path against its plain PyTorch version
+     at the main path's shapes, and time both with CUDA events: K1
+     icp_normal_eqs on frame 3's measurement pyramid against the model maps
+     of the state fused from frames 0-2 (all three levels, the identity
+     increment and a small one; count exact, A and b within 1e-4 of their
+     largest entry, the same bits on a second launch); K2 build_face, K3
+     face_integrate, K4 sweep_rays and K5 resample_face on that 512^3 volume
+     and frame 3 (all six cube faces seen from the orbit pose, and each face
+     seen from the volume's centre looking along it);
   4. run the 50-frame orbit of bench.py (640x480, fx=fy=525, 512^3 over 3 m,
-     3-level pyramid, ICP (4,5,10), icp_mode="gather") through init_state +
-     kinfu_step with the launch counts set to 0 just before; every frame
-     after the first must track, the aligned ATE against exact ground truth
-     must be <= 1 mm, and every kernel must have launched;
-  5. profile 8 steps of a fresh run: kernel time per frame and the
+     3-level pyramid, ICP (4,5,10), icp_mode="auto", which is the warped ICP
+     kernel K1 on the card) through init_state + kinfu_step with the launch
+     counts set to 0 just before; every frame after the first must track,
+     the aligned ATE against exact ground truth must be <= 1 mm, K1 must
+     launch 19 times a frame and every other kernel at least once; then 10
+     frames with icp_mode="gather", which must track without launching K1;
+  5. the same 50 frames through KinFuSession with its default device, numpy
+     frames in, the counts set to 0 just before: every frame tracks, the
+     aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
+     Phong render, the point cloud, the PLY and pose files, and a
+     checkpoint that is loaded and tracks one more frame;
+  6. profile 8 steps of a fresh run: kernel time per frame and the
      device's idle share (the full table goes to --profile-table);
-  6. print one JSON line describing the kernels, then the card, then the
+  7. print one JSON line describing the kernels, then the card, then the
      result line.
 
 Usage: python3 chip_smoke.py [--profile-table PATH]
@@ -27,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,11 +48,15 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "doc" / "golden_poses_r05_synthetic_640x480_512.txt"
 PROFILE_TABLE = REPO / "build" / "profile_table.txt"
+#: where the session phase writes its PLY, poses and checkpoint files
+SESSION_OUT = REPO / "build" / "chip_smoke_session"
 #: bench.py's orbit length
 ORBIT_FRAMES = 50
 
 KERNELS = (
     # (launch-count key, name, source, TPU kernel it replaces)
+    ("icp_normal_eqs", "K1 icp_normal_eqs", "kinfu_tpu_torch/csrc/icp_normal_eqs.cu",
+     "kinfu_tpu/ops/pallas_icp.py:48"),
     ("build_face", "K2 build_face", "kinfu_tpu_torch/csrc/build_face.cu",
      "kinfu_tpu/ops/facewarp.py:285"),
     ("face_integrate", "K3 face_integrate", "kinfu_tpu_torch/csrc/face_integrate.cu",
@@ -52,11 +67,48 @@ KERNELS = (
      "kinfu_tpu/ops/pallas_raycast.py:579"),
 )
 
+#: K1 tolerance on A and b, relative to their largest |entry| (the sums run
+#: in another order), and the inliers a level must have to test something
+K1_TOL = 1e-4
+K1_MIN_INLIERS = 1000
 #: K4 tolerances: hit-mask agreement and |t| gap where both hit (metres)
 K4_MASK_AGREE = 0.999
 K4_T_TOL = 1e-4
 #: orbit acceptance: aligned ATE against exact ground truth (metres)
 ATE_MAX = 1.0e-3
+#: K1 launches per ICP iteration (one kernel; its last block finishes)
+K1_PER_ITER = 1
+#: frames of the gather-ICP leg
+GATHER_FRAMES = 10
+#: the session's pose record against the step's poses
+SESSION_POSE_TOL = 1e-4
+#: the fewest points the session's cloud of the 512^3 orbit may have
+SESSION_MIN_POINTS = 100_000
+
+#: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and float32 FLOP/s
+#: outside the tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+#: float32 operations per work item, counted from each kernel's source and
+#: rounded up: K1 per current pixel; K2 per face-stack pixel; K3 per voxel of
+#: a plane its gate admits (projection and ownership), per voxel it updates
+#: and per voxel whose colour it mixes; K4 per ray-plane step; K5 per camera
+#: pixel
+OPS = {"icp_normal_eqs": 150, "build_face": 40, "face_integrate_gate": 24,
+       "face_integrate_update": 24, "face_integrate_colour": 20, "sweep_rays": 15,
+       "resample_face": 40}
+
+
+def bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the least time the card could take to move
+    `nbytes` once and to do `ops` float32 operations."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def configure():
@@ -71,7 +123,7 @@ def configure():
         fused_mode="auto",
         integrate_mode="auto",
         raycast_mode="auto",
-        icp_mode="gather",
+        icp_mode="auto",
     )
     intr = Intrinsics(width=640, height=480, fx=525.0, fy=525.0, cx=319.5, cy=239.5)
     return params, intr
@@ -128,7 +180,9 @@ def check_kernels(state, frame, pose, params, intr, device):
     timed on its +z face), then each face seen from the volume's centre
     looking along it, so that every face gets real work: in each of those
     views and in the timed one, K2's image must be non-empty, K3 must update
-    voxels, K4 must hit the surface and K5 must resample a hit. Returns {key: [max_abs_err, ms, plain_ms]}."""
+    voxels, K4 must hit the surface and K5 must resample a hit. Returns
+    {key: [max_abs_err, ms, plain_ms, bound_ms, bound_by]}, the times and
+    bounds of the timed view."""
     import torch
 
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
@@ -150,7 +204,8 @@ def check_kernels(state, frame, pose, params, intr, device):
     dims_xyz = params.volume_dims
     vs = params.voxel_size
     vol = state.vol
-    res = {k: [0.0, float("nan"), float("nan")] for k, *_ in KERNELS}
+    res = {k: [0.0, float("nan"), float("nan"), float("nan"), ""]
+           for k, *_ in KERNELS if k != "icp_normal_eqs"}
     k4_agree = []
 
     views = [("orbit", pose, f) for f in fw.face_frames()]
@@ -178,6 +233,8 @@ def check_kernels(state, frame, pose, params, intr, device):
         if timed_here:
             res["build_face"][1] = ms(lambda: fw.build_face(depth_m, col_packed, prm2, fspec))
             res["build_face"][2] = ms(lambda: fw.build_face_plain(depth_m, col_packed, prm2, fspec))
+            res["build_face"][3:] = bound(nbytes(depth_m, col_packed, prm2, rk, ck),
+                                          OPS["build_face"] * rk.numel())
 
         # K3 on copies of the fused volume
         prm3 = fi.sweep_params(c_p, fw.primed_voxel_size(frame_, vs), fspec, params,
@@ -187,11 +244,14 @@ def check_kernels(state, frame, pose, params, intr, device):
         vk = TSDFVolume(*(a.clone() for a in vol))
         vp = TSDFVolume(*(a.clone() for a in vol))
         fi.sweep_face(vk, frame_, rk, ck, prm3, table)
-        fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table)
+        # the voxels updated and colour-mixed depend on the face stack and the
+        # geometry only, so they hold for the timed sweeps below too
+        n_upd, n_col = (int(c) for c in fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table))
         sync()
         err3 = max(int((a.int() - b.int()).abs().max()) for a, b in zip(vk, vp))
         changed = int((vk.weight != vol.weight).sum())
-        print(f"  K3 {tag}: {changed} voxels updated, max |kernel - plain| {err3}", flush=True)
+        print(f"  K3 {tag}: {changed} voxels updated ({n_upd} by the plain version, {n_col} "
+              f"colour-mixed), max |kernel - plain| {err3}", flush=True)
         res["face_integrate"][0] = max(res["face_integrate"][0], float(err3))
         if err3:
             _fail(f"K3 {tag}: kernel and plain version differ")
@@ -201,6 +261,15 @@ def check_kernels(state, frame, pose, params, intr, device):
             res["face_integrate"][1] = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, prm3, table))
             res["face_integrate"][2] = ms(
                 lambda: fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table), reps=10, warmup=1)
+            # tsdf + weight (4 bytes) read and written where it updates, colour
+            # (4 bytes) read and written where it mixes; the face stack, the
+            # table and the parameters read once. Every voxel of an admitted
+            # plane is projected and tested for ownership.
+            admitted = int((table[:, -1] != 0).sum()) * dims_p[1] * dims_p[2]
+            res["face_integrate"][3:] = bound(
+                8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
+                OPS["face_integrate_gate"] * admitted + OPS["face_integrate_update"] * n_upd
+                + OPS["face_integrate_colour"] * n_col)
         del vk, vp
 
         # K4 on the fused volume
@@ -227,6 +296,13 @@ def check_kernels(state, frame, pose, params, intr, device):
             res["sweep_rays"][1] = ms(lambda: fr.sweep_rays(vol.tsdf, frame_, prm4, rspec))
             res["sweep_rays"][2] = ms(lambda: fr.sweep_rays_plain(vol.tsdf, frame_, prm4, rspec),
                                       reps=10, warmup=1)
+            # each int16 voxel that a ray samples before it resolves, once; a
+            # step for each plane that a live ray marches
+            n_vox, n_steps = (int(c) for c in fr.sweep_rays_work(vol.tsdf, frame_, prm4, rspec))
+            print(f"  K4 {tag}: the rays sample {n_vox} distinct voxels in {n_steps} "
+                  f"ray-plane steps", flush=True)
+            res["sweep_rays"][3:] = bound(2 * n_vox + nbytes(prm4, hk, bk),
+                                          OPS["sweep_rays"] * n_steps)
 
         # K5 on the shaded face fields
         t_f, n_f, _ = fr.face_fields(hp, bp, org_p, rspec)
@@ -245,8 +321,73 @@ def check_kernels(state, frame, pose, params, intr, device):
         if timed_here:
             res["resample_face"][1] = ms(lambda: fr.resample_face(t_f, n_f, prm5, intr))
             res["resample_face"][2] = ms(lambda: fr.resample_face_plain(t_f, n_f, prm5, intr))
+            res["resample_face"][3:] = bound(nbytes(t_f, n_f, prm5, tk, nk),
+                                             OPS["resample_face"] * tk.numel())
     print(f"  K2 and K5 bit-exact, K3 int16/int32 equal on {len(views)} views; "
           f"K4 min mask agreement {min(k4_agree):.6f}", flush=True)
+    return res
+
+
+def check_icp(state, frame, params, intr, device):
+    """Phase 3, K1: frame 3's measurement pyramid against the model maps of
+    `state` at every level, with the identity increment and a small one.
+    The kernel's inlier count must equal the plain version's, A and b must
+    agree within K1_TOL of their largest |entry|, a second launch must give
+    the same bits, and every level must have more than K1_MIN_INLIERS
+    inliers. Times level 0 with the small increment. Returns
+    [max_abs_err, ms, plain_ms, bound_ms, bound_by]."""
+    import torch
+
+    from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid
+    from kinfu_tpu_torch.geometry.se3 import Pose, rodrigues
+    from kinfu_tpu_torch.ops import icp_warped as iw
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms = cuda_ms if device.type == "cuda" else (lambda fn, **k: float("nan"))
+    p = params
+    _, cvs, cns = build_measurement_pyramid(
+        torch.as_tensor(frame[0], device=device), intr, pyramid_height=p.pyramid_height,
+        bfilter_kernel_size=p.bfilter_kernel_size, bfilter_color_sigma=p.bfilter_color_sigma,
+        bfilter_spatial_sigma=p.bfilter_spatial_sigma, depth_scale=p.depth_scale,
+        max_dist=p.dfilter_dist, normal_disc_threshold=p.normal_disc_threshold)
+    sin_t = math.sin(math.radians(p.icp_angle_threshold))
+    increments = {"identity": ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),
+                  "small": ((0.002, -0.004, 0.001), (0.004, -0.002, 0.003))}
+    res = [0.0, float("nan"), float("nan"), float("nan"), ""]
+    for level in range(p.pyramid_height):
+        maps = (cvs[level], cns[level], state.model_vmaps[level], state.model_nmaps[level])
+        for name, (rvec, t) in increments.items():
+            inc = Pose(rodrigues(torch.tensor(rvec, dtype=torch.float32, device=device)),
+                       torch.tensor(t, dtype=torch.float32, device=device))
+            args = (inc, *maps, intr.level(level), p.icp_dist_threshold, sin_t)
+            A, b, n = iw.icp_normal_eqs_warped(*args)
+            A2, b2, n2 = iw.icp_normal_eqs_warped(*args)
+            pA, pb, pn = iw.icp_normal_eqs_warped_plain(*args)
+            sync()
+            tag = f"K1 level {level}, {name} increment"
+            if not (torch.equal(A, A2) and torch.equal(b, b2) and torch.equal(n, n2)):
+                _fail(f"{tag}: a second launch on the same inputs gave other bits")
+            if int(n) != int(pn):
+                _fail(f"{tag}: {int(n)} inliers, the plain version {int(pn)}")
+            if int(n) <= K1_MIN_INLIERS:
+                _fail(f"{tag}: only {int(n)} inliers, so the comparison tested little")
+            err_a, scale_a = float((A - pA).abs().max()), float(pA.abs().max())
+            err_b, scale_b = float((b - pb).abs().max()), float(pb.abs().max())
+            print(f"  {tag}: {int(n)} inliers (plain {int(pn)}); max |A - plain| {err_a:.3g} "
+                  f"of {scale_a:.3g}, max |b - plain| {err_b:.3g} of {scale_b:.3g}", flush=True)
+            if err_a > K1_TOL * scale_a or err_b > K1_TOL * scale_b:
+                _fail(f"{tag}: A or b differs from the plain version by more than "
+                      f"{K1_TOL} of its largest entry")
+            res[0] = max(res[0], err_a, err_b)
+            if level == 0 and name == "small":
+                res[1] = ms(lambda: iw.icp_normal_eqs_warped(*args))
+                res[2] = ms(lambda: iw.icp_normal_eqs_warped_plain(*args))
+                # the current maps once, the model pixels gathered once
+                gathered = int(iw.icp_normal_eqs_warped_work(inc, maps[0], maps[1], maps[2],
+                                                             intr.level(level)))
+                print(f"  {tag}: gathers {gathered} distinct model pixels", flush=True)
+                res[3:] = bound(nbytes(maps[0], maps[1], A, b, n) + 24 * gathered,
+                                OPS["icp_normal_eqs"] * maps[0].shape[0] * maps[0].shape[1])
     return res
 
 
@@ -287,6 +428,86 @@ def run_orbit(frames, params, intr, device):
     return poses, oks, inliers, frame_ms, state, launches
 
 
+def run_session(frames, gt, ref_poses, params, intr, out_dir: Path, **session_kw):
+    """Phase 5: the frames of phase 4 through KinFuSession (numpy frames in),
+    with the launch counts set to 0 just before; then render, export and a
+    checkpoint round trip. Returns (launches, host ms per frame)."""
+    import torch
+
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from kinfu_tpu_torch.io.ply import read_ply
+    from kinfu_tpu_torch.io.poses import read_poses_reference_format
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.pipeline.session import KinFuSession
+
+    n = len(ref_poses)
+    sess = KinFuSession(intr, params, **session_kw)
+    sync = torch.cuda.synchronize if sess.device.type == "cuda" else (lambda: None)
+    sync()
+    kernels.reset_launch_counts()
+    oks = [sess.pipeline(c, d) for d, c in frames[:n]]
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    if not all(oks):
+        _fail(f"session: tracking failed at frames {[k for k, ok in enumerate(oks) if not ok]}")
+    record = np.stack(sess.pose_record)
+    gap = float(np.abs(record - ref_poses).max()) if record.shape == ref_poses.shape else np.inf
+    ate = ate_rmse(list(record), gt[:n])
+    host_ms = float(np.median(sess.frame_times_ms[2:]))
+    print(f"    {n}/{n} frames tracked on {sess.device}; aligned ATE {ate * 1e3:.4f} mm; "
+          f"max |pose record - phase 4 poses| {gap:.3g}; {host_ms:.3f} ms/frame host clock "
+          f"(median of frames 2-{n - 1}); launches {launches}", flush=True)
+    if gap > SESSION_POSE_TOL:
+        _fail(f"session: the pose record differs from phase 4's poses by {gap}")
+    if ate > ATE_MAX:
+        _fail(f"session: aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+    for key, name, *_ in KERNELS:
+        if launches.get(key, 0) <= 0:
+            _fail(f"session: {name} was not launched")
+
+    img = sess.get_render_map(KinFuSession.PHONG)
+    vm, nm = sess.state.model_vmaps[0], sess.state.model_nmaps[0]
+    valid = ((nm != 0).any(-1) & (vm != 0).any(-1)).cpu().numpy()
+    frac = float((img != 0).any(-1)[valid].mean()) if valid.any() else 0.0
+    normals = sess.get_render_map(KinFuSession.NORMAL)
+    print(f"    Phong render nonzero on {frac:.4%} of the {int(valid.sum())} pixels with "
+          f"valid model maps", flush=True)
+    if img.shape != (intr.height, intr.width, 3) or normals.shape != img.shape or frac < 0.99:
+        _fail(f"session: render {img.shape}, nonzero on {frac:.4%} of the valid pixels")
+
+    pts = sess.extract_pointcloud()
+    lo = np.asarray(params.volume_origin, np.float32)
+    inside = bool(((pts >= lo) & (pts <= lo + np.asarray(params.volume_range))).all())
+    print(f"    extracted {len(pts)} points, all inside the volume: {inside}", flush=True)
+    if len(pts) <= SESSION_MIN_POINTS or not inside:
+        _fail(f"session: {len(pts)} points extracted, all inside the volume: {inside}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sess.save_pointcloud(str(out_dir / "cloud.ply"))
+    back = read_ply(str(out_dir / "cloud.ply"))
+    if back.shape != pts.shape or not np.allclose(back, pts, rtol=1e-5, atol=1e-6):
+        _fail("session: the PLY file does not read back as the extracted points")
+    sess.save_poses(str(out_dir / "poses.txt"))
+    back = read_poses_reference_format(str(out_dir / "poses.txt"))
+    if len(back) != n or not np.allclose(np.stack(back), record, rtol=0, atol=1e-6):
+        _fail("session: the poses file does not read back as the pose record")
+
+    ckpt = out_dir / "session.npz"
+    save_checkpoint(str(ckpt), sess)
+    resumed = load_checkpoint(str(ckpt), device=sess.device)
+    ckpt.unlink()
+    same = (resumed.frame_count == sess.frame_count
+            and np.array_equal(np.stack(resumed.pose_record), record)
+            and all(torch.equal(a, b) for a, b in zip(resumed.state.vol, sess.state.vol)))
+    del sess
+    ok = resumed.pipeline(frames[n][1], frames[n][0])
+    print(f"    checkpoint: state and record equal after loading: {same}; frame {n} "
+          f"tracked after resuming: {ok} ({resumed.last_icp_inliers} inliers)", flush=True)
+    if not (same and ok):
+        _fail("session: the checkpoint did not load as saved, or the next frame lost tracking")
+    return launches, host_ms
+
+
 def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
                   n: int = 10) -> None:
     """Phase 5: torch.profiler over frames 2..n-1 of a fresh run. Prints the
@@ -318,7 +539,7 @@ def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
                 key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ev) / 1e3 / (n - 2)
     launches = sum(e.count for e in ev) / (n - 2)
-    print(f"[5] profile, frames 2-{n - 1} of a fresh run: kernels busy {busy:.3f} ms/frame in "
+    print(f"[6] profile, frames 2-{n - 1} of a fresh run: kernels busy {busy:.3f} ms/frame in "
           f"{launches:.0f} launches/frame; {busy / ms_frame:.1%} of the "
           f"{ms_frame:.3f} ms/frame step (device idle {1 - busy / ms_frame:.1%}); "
           f"{wall:.1f} ms/frame wall under the profiler", flush=True)
@@ -356,6 +577,7 @@ def main() -> None:
     from kinfu_tpu_torch.io.poses import read_poses_reference_format
     from kinfu_tpu_torch.ops import kernels
     from kinfu_tpu_torch.pipeline.kinfu import init_state, kinfu_step
+    from kinfu_tpu_torch.tracking.icp import resolve_icp_mode
 
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -371,9 +593,12 @@ def main() -> None:
     params, intr = configure()
     n = ORBIT_FRAMES
     t0 = time.perf_counter()
-    frames, gt = orbit_frames(n, intr)
-    print(f"    rendered {n} frames {intr.width}x{intr.height} in "
+    # one frame more than the orbit: the session resumes from its checkpoint on it
+    frames, gt = orbit_frames(n + 1, intr)
+    print(f"    rendered {n + 1} frames {intr.width}x{intr.height} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if resolve_icp_mode(params, device) != "warped":
+        _fail(f"icp_mode={params.icp_mode!r} does not resolve to the warped kernel on {device}")
 
     # a 512^3 volume fused from 3 frames, then frame 3 as the kernels' input
     state = init_state(params, intr, device=device)
@@ -383,16 +608,18 @@ def main() -> None:
     torch.cuda.synchronize()
     print("[3] kernels against their plain versions (frame 3, volume fused from "
           "frames 0-2):", flush=True)
-    res = check_kernels(state, frames[3], gt[3], params, intr, device)
+    res = {"icp_normal_eqs": check_icp(state, frames[3], params, intr, device)}
+    res.update(check_kernels(state, frames[3], gt[3], params, intr, device))
     for key, name, *_ in KERNELS:
-        err, ms, plain_ms = res[key]
-        print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err {err:.3g}"
-              f"  [{smi}]", flush=True)
+        err, ms, plain_ms, bound_ms, bound_by = res[key]
+        print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), max abs err {err:.3g}  [{smi}]", flush=True)
     del state
     torch.cuda.empty_cache()
 
-    print(f"[4] orbit: {n} frames through init_state + kinfu_step", flush=True)
-    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames, params, intr, device)
+    print(f"[4] orbit: {n} frames through init_state + kinfu_step, icp_mode="
+          f"{params.icp_mode!r}", flush=True)
+    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames[:n], params, intr, device)
     for i in range(0, n, 10):
         print(f"    frame {i:2d}: ok={bool(oks[i])} inliers={int(inliers[i])} "
               f"{frame_ms[i]:.2f} ms", flush=True)
@@ -406,16 +633,19 @@ def main() -> None:
                 or not bool(torch.isfinite(nm).all()):
             _fail(f"model map level {lv}: bad shape {tuple(vm.shape)} or non-finite values")
     hit_frac = float((state.model_nmaps[0] != 0).any(-1).float().mean())
-    ate = ate_rmse(list(poses), gt)
-    ate_raw = ate_rmse(list(poses), gt, align=False)
+    del state
+    torch.cuda.empty_cache()
+    ate = ate_rmse(list(poses), gt[:n])
+    ate_raw = ate_rmse(list(poses), gt[:n], align=False)
     golden = read_poses_reference_format(str(GOLDEN))[:n]
     gap = max(float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(poses, golden))
     ms_frame = float(np.median(frame_ms[2:]))
+    k1_want = sum(params.icp_iters) * n * K1_PER_ITER
     print(f"    tracked {int(oks[1:].sum())}/{n - 1} frames after bootstrap; model hit "
           f"fraction {hit_frac:.3f}", flush=True)
     print(f"    ATE vs exact ground truth: aligned {ate * 1e3:.4f} mm, raw "
           f"{ate_raw * 1e3:.4f} mm; max translation gap to {GOLDEN.name} "
-          f"{gap * 1e3:.4f} mm (recorded with warped ICP: printed, not gated)", flush=True)
+          f"{gap * 1e3:.4f} mm (printed, not gated)", flush=True)
     print(f"    {ms_frame:.3f} ms/frame (median of frames 2-{n - 1}, CUDA events) "
           f"on {smi}", flush=True)
     print(f"    launches in the orbit: {launches}", flush=True)
@@ -424,13 +654,38 @@ def main() -> None:
     for key, name, *_ in KERNELS:
         if launches.get(key, 0) <= 0:
             _fail(f"{name} was not launched on the main path")
+    if launches["icp_normal_eqs"] != k1_want:
+        _fail(f"K1 launched {launches['icp_normal_eqs']} times in the orbit, not "
+              f"{sum(params.icp_iters)} iterations x {n} frames x {K1_PER_ITER} = {k1_want}")
 
-    profile_steps(frames, params, intr, device, args.profile_table, ms_frame)
+    gather = params.replace(icp_mode="gather")
+    g_poses, g_oks, _, g_ms, g_state, g_launches = run_orbit(frames[:GATHER_FRAMES], gather,
+                                                             intr, device)
+    del g_state
+    g_gap = float(np.abs(g_poses - poses[:GATHER_FRAMES]).max())
+    print(f"    gather leg: {GATHER_FRAMES} frames with icp_mode='gather', tracked "
+          f"{int(g_oks[1:].sum())}/{GATHER_FRAMES - 1}; max |pose - warped pose| {g_gap:.3g}; "
+          f"launches {g_launches}", flush=True)
+    print(f"    frames 2-{GATHER_FRAMES - 1}, median ms/frame (CUDA events): gather "
+          f"{float(np.median(g_ms[2:])):.3f}, warped {float(np.median(frame_ms[2:GATHER_FRAMES])):.3f} "
+          f"(warped ran first)", flush=True)
+    if not g_oks[1:].all() or g_launches.get("icp_normal_eqs", 0) != 0:
+        _fail("the gather leg lost tracking or launched K1")
+    torch.cuda.empty_cache()
+
+    print(f"[5] session: {n} frames through KinFuSession (default device)", flush=True)
+    s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
+    if s_launches["icp_normal_eqs"] != k1_want:
+        _fail(f"K1 launched {s_launches['icp_normal_eqs']} times in the session, not {k1_want}")
+    torch.cuda.empty_cache()
+
+    profile_steps(frames[:n], params, intr, device, args.profile_table, ms_frame)
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(launches[key]), "max_abs_err": float(res[key][0]),
-         "ms": res[key][1], "plain_ms": res[key][2]}
+         "ms": res[key][1], "plain_ms": res[key][2], "bound_ms": res[key][3],
+         "bound_by": res[key][4], "library_ms": None}
         for key, name, src, rep in KERNELS
     ]}
     print(json.dumps(summary))

@@ -11,10 +11,11 @@ runs on CUDA instead of a TPU:
     Off CUDA, "auto" selects the non-fused path, which is not ported yet
     and raises; `fused_mode="on"` runs the fused step with the kernels'
     plain PyTorch versions on any device.
-  - icp_mode "auto": "gather" — the warped ICP kernel is not ported yet
-    (ROADMAP queue 2, K1), and the JAX package also picks "gather" off the
-    TPU (kinfu_tpu/tracking/icp.py:139-140). An explicit "warped" raises
-    NotImplementedError.
+  - icp_mode "auto": "warped" (the ICP kernel K1) on a CUDA device,
+    "gather" on the CPU, as the JAX package picks the warped kernel on its
+    accelerator and "gather" on the CPU (kinfu_tpu/tracking/icp.py:139-140).
+    An explicit "warped" on the CPU runs K1's plain version; an explicit
+    "gather" is plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ class KinFuParams:
     #: iterations per pyramid level, index = level (0 = finest)
     icp_iters: Tuple[int, ...] = (4, 5, 10)
     #: "gather" = plain PyTorch normal equations; "warped" = the fused ICP
-    #: kernel (not ported yet, raises); "auto" = "gather"
+    #: kernel K1 (its plain version on the CPU); "auto" = "warped" on CUDA,
+    #: "gather" on the CPU
     icp_mode: str = "auto"
 
     # ---- TSDF volume ----

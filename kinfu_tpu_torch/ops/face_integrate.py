@@ -28,7 +28,7 @@ Differences of form from the TPU kernel, none of result:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -163,8 +163,11 @@ def unprime(a: torch.Tensor, frame: FaceFrame) -> torch.Tensor:
 
 def sweep_face_plain(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
                      face_color: torch.Tensor, prm: torch.Tensor,
-                     table: torch.Tensor) -> None:
-    """Plain PyTorch version of K3: one face's fusion sweep, in place."""
+                     table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3: one face's fusion sweep, in place.
+    Returns what the sweep did, as device counts: (voxels whose TSDF and
+    weight it updated, voxels whose colour it mixed). K3 reads and writes
+    those voxels' fields and no others."""
     t_p, w_p, c_p = prime(vol.tsdf, frame), prime(vol.weight, frame), prime(vol.color, frame)
     Zp, Yp, Xp = t_p.shape
     dev = t_p.device
@@ -226,6 +229,7 @@ def sweep_face_plain(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor
     vol.tsdf.copy_(unprime(torch.where(upd, t_fix, t_p), frame))
     vol.weight.copy_(unprime(torch.where(upd, w_new.to(torch.int16), w_p), frame))
     vol.color.copy_(unprime(torch.where(cupd, c_new, c_p), frame))
+    return upd.sum(), cupd.sum()
 
 
 def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
@@ -234,7 +238,8 @@ def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
     """K3: one face's fusion sweep, in place. CPU tensors take the plain
     version; CUDA tensors launch csrc/face_integrate.cu."""
     if vol.tsdf.device.type == "cpu":
-        return sweep_face_plain(vol, frame, face_range, face_color, prm, table)
+        sweep_face_plain(vol, frame, face_range, face_color, prm, table)
+        return
     kernels.library()
     Z, Y, X = vol.tsdf.shape
     dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)

@@ -109,6 +109,27 @@ def sweep_rays_plain(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
                      spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4: (hit_t, back_t) [F, F] f32 in the
     t = z' - o'_z parameterization, +inf (1e30) where there is no event."""
+    ht, bt, _ = _march(tsdf, frame, prm, spec)
+    return ht, bt
+
+
+def sweep_rays_work(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
+                    spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K4 must do on these inputs, as device counts: (distinct voxels
+    the rays sample, ray-plane steps they march). A ray marches plane by
+    plane until it resolves and samples the voxel of each valid plane on
+    its way, so the counts depend on the surface. chip_smoke.py turns them
+    into K4's bound."""
+    touched = torch.zeros(tsdf.numel(), dtype=torch.bool, device=tsdf.device)
+    _, _, steps = _march(tsdf, frame, prm, spec, touched)
+    return touched.sum(), steps
+
+
+def _march(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor, spec: RaySpec,
+           touched: torch.Tensor | None = None):
+    """The plain march: (hit_t, back_t, ray-plane steps of the live rays).
+    Where `touched` (bool, tsdf.numel()) is given, it marks every voxel of
+    the primed volume that a live ray samples."""
     t_p = prime(tsdf, frame)
     Zp, Yp, Xp = t_p.shape
     dev = tsdf.device
@@ -128,6 +149,7 @@ def sweep_rays_plain(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
     fp = nan.expand(F, F).clone()
     alive = _own_mask(spec, own_tan, dev) & (gate != 0)
     flat = t_p.reshape(-1)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
 
     for zg in range(Zp):
         t_m = float(zg) * vsz - oz
@@ -144,6 +166,9 @@ def sweep_rays_plain(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
         valid = t_ok & (1 <= zg < Zp - 1) & yok & xok
 
         live = alive & (ht >= _INF) & (bt >= _INF)
+        if touched is not None:
+            touched[lin[live & valid]] = True
+            steps = steps + live.sum()
         # a NaN previous sample fails both comparisons (no event)
         front = live & valid & (fp > 0.0) & (f_new < 0.0)
         back = live & valid & (fp < 0.0) & (f_new > 0.0)
@@ -159,7 +184,7 @@ def sweep_rays_plain(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
         ) & t_ok
         bt = torch.where(live & ~front & ~back & exit_out, t_m, bt)
         fp = torch.where(valid, f_new, nan)
-    return ht, bt
+    return ht, bt, steps
 
 
 def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,

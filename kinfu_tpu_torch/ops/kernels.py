@@ -43,13 +43,16 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
-#: C entry points: name -> argtypes (pointers and the stream are c_void_p)
+#: C entry points: name -> argtypes (pointers and the stream are c_void_p,
+#: float arguments c_float)
 _SIGNATURES = {
     "kinfu_build_face": [_P] * 5 + [_I] * 4 + [_P],
     "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P],
     "kinfu_sweep_rays": [_P] * 4 + [_I] * 8 + [_P],
     "kinfu_resample_face": [_P] * 5 + [_I] * 3 + [_P],
+    "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P],
 }
 
 _lib = None

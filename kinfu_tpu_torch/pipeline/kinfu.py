@@ -17,6 +17,7 @@ from typing import Callable, Tuple
 import torch
 
 from kinfu_tpu_torch.config import KinFuParams
+from kinfu_tpu_torch.device import resolve_device
 from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid, resize_points_normals
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import (
@@ -29,21 +30,13 @@ from kinfu_tpu_torch.geometry.se3 import (
 )
 from kinfu_tpu_torch.ops.fused_step import fused_supported, fused_update
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
-from kinfu_tpu_torch.tracking.icp import resolve_icp_mode, rigid_icp
+from kinfu_tpu_torch.tracking.icp import rigid_icp
 from kinfu_tpu_torch.volume.tsdf import create_volume
 
 
-def resolve_device(device) -> torch.device:
-    """The torch device to run on; "cuda" without a usable CUDA device
-    raises instead of silently running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} requested but CUDA is not available")
-    return dev
-
-
-def init_state(params: KinFuParams, intr: Intrinsics, device="cpu") -> KinFuState:
-    """Fresh session state."""
+def init_state(params: KinFuParams, intr: Intrinsics, device="cuda") -> KinFuState:
+    """Fresh session state on `device` (the card unless the caller asks for
+    the CPU; raises when CUDA is missing)."""
     dev = resolve_device(device)
     vmaps, nmaps = [], []
     for level in range(params.pyramid_height):
@@ -89,16 +82,16 @@ def kinfu_step(
 
     auto_reset=True wipes map and pose on a tracking failure
     (kinectfusion.cpp:97-102); auto_reset=False keeps the state for a
-    relocalizer. Only the fused step is ported: other configurations raise
+    relocalizer. Only the fused step is ported, with either ICP mode
+    (`tracking/icp.py::resolve_icp_mode`): other configurations raise
     NotImplementedError."""
     dev = state.vol.tsdf.device
-    resolve_icp_mode(params)
     if not fused_supported(state.vol.tsdf.shape, params, dev):
         raise NotImplementedError(
             "only the fused warped step is ported (fused_mode='on', or 'auto' on "
-            "CUDA, with warped integrate/raycast and warp_dims_ok volume dims); the "
-            "gather/hier integrate and raycast paths are ROADMAP.md queue 1, items "
-            "4 and 5"
+            "CUDA, with warped integrate/raycast and warp_dims_ok volume dims; "
+            "either ICP mode); the non-fused step with the gather/hier integrate "
+            "and raycast paths is ROADMAP.md queue 1, items 4 and 5"
         )
     vol_pose = _volume_pose(params, dev)
 

@@ -15,6 +15,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from kinfu_tpu_torch.device import resolve_device
 from kinfu_tpu_torch.geometry.se3 import Pose, pose_from_matrix, pose_matrix
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume
 
@@ -39,10 +40,12 @@ class StepOutput(NamedTuple):
     icp_inliers: torch.Tensor
 
 
-def state_from_numpy(d: Mapping[str, Any], device="cpu") -> KinFuState:
-    """State from numpy arrays: "tsdf", "weight", "color" ([Z,Y,X] int16,
-    int16, int32), "pose" (4x4 f32), "model_vmaps" / "model_nmaps"
-    (sequences of [h,w,3] f32, finest first) and "frame_count"."""
+def state_from_numpy(d: Mapping[str, Any], device="cuda") -> KinFuState:
+    """State on `device` from numpy arrays: "tsdf", "weight", "color"
+    ([Z,Y,X] int16, int16, int32), "pose" (4x4 f32), "model_vmaps" /
+    "model_nmaps" (sequences of [h,w,3] f32, finest first) and
+    "frame_count". "cuda" without a usable CUDA device raises."""
+    device = resolve_device(device)
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)

@@ -1,14 +1,18 @@
 """Frame-to-model projective point-to-plane ICP (port of
-kinfu_tpu/tracking/icp.py, "gather" mode).
+kinfu_tpu/tracking/icp.py).
 
 The whole coarse-to-fine optimisation stays on the device: the 6x6 solve
 uses `torch.linalg.solve_ex` (plain `solve` checks for a singular matrix
 and so waits for the device), and every result is picked with
 `torch.where` on device tensors, never with a host read.
 
-The warped ICP kernel (kinfu_tpu/ops/pallas_icp.py, K1) is not ported
-yet: `icp_mode="warped"` raises; "auto" resolves to "gather", as the JAX
-package does off the TPU (kinfu_tpu/tracking/icp.py:139-140).
+Each iteration's normal equations come from one of two paths:
+  - "warped": K1, `ops/icp_warped.py::icp_normal_eqs_warped` (the CUDA
+    kernel on a CUDA tensor, its plain version on a CPU tensor);
+  - "gather": `_normal_equations` below, plain PyTorch on any device.
+"auto" resolves to "warped" on a CUDA device and to "gather" on the CPU,
+as the JAX package picks the warped kernel on its accelerator and the
+gather path on the CPU (kinfu_tpu/tracking/icp.py:139-140).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose, compose, identity_pose, se3_increment
 from kinfu_tpu_torch.numerics import rint_index
+from kinfu_tpu_torch.ops.icp_warped import icp_normal_eqs_warped
 
 
 class ICPResult(NamedTuple):
@@ -33,15 +38,12 @@ class ICPResult(NamedTuple):
     num_inliers: torch.Tensor
 
 
-def resolve_icp_mode(params: KinFuParams) -> str:
-    mode = "gather" if params.icp_mode == "auto" else params.icp_mode
-    if mode == "warped":
-        raise NotImplementedError(
-            "icp_mode='warped' needs the ICP kernel K1 "
-            "(kinfu_tpu/ops/pallas_icp.py), which is not ported yet: "
-            "ROADMAP.md queue 2, K1. Use icp_mode='gather' or 'auto'."
-        )
-    return mode
+def resolve_icp_mode(params: KinFuParams, device) -> str:
+    """"warped" or "gather": an explicit mode as it is; "auto" is "warped"
+    on a CUDA device and "gather" elsewhere."""
+    if params.icp_mode != "auto":
+        return params.icp_mode
+    return "warped" if torch.device(device).type == "cuda" else "gather"
 
 
 def _normal_equations(
@@ -97,9 +99,11 @@ def rigid_icp(
     intr: Intrinsics,
     params: KinFuParams,
 ) -> ICPResult:
-    """Coarse-to-fine ICP; returns the prev<-cur camera increment."""
-    resolve_icp_mode(params)
+    """Coarse-to-fine ICP; returns the prev<-cur camera increment. The
+    normal equations take the path `resolve_icp_mode` picks."""
     device = cur_vmaps[0].device
+    normal_equations = (icp_normal_eqs_warped
+                        if resolve_icp_mode(params, device) == "warped" else _normal_equations)
     sin_thres = math.sin(math.radians(params.icp_angle_threshold))
     eye6 = torch.eye(6, dtype=torch.float32, device=device)
     pose = identity_pose(device)
@@ -111,7 +115,7 @@ def rigid_icp(
         cv, cn = cur_vmaps[level], cur_nmaps[level]
         pv, pn = pre_vmaps[level], pre_nmaps[level]
         for _ in range(iters):
-            A, b, inliers = _normal_equations(
+            A, b, inliers = normal_equations(
                 pose, cv, cn, pv, pn, lintr, params.icp_dist_threshold, sin_thres
             )
             det = torch.linalg.det(A)

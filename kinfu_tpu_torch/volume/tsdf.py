@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from kinfu_tpu_torch.device import resolve_device
+
 SHORTMAX = 32767.0
 
 
@@ -25,8 +27,10 @@ class TSDFVolume(NamedTuple):
     color: torch.Tensor  # int32, packed 0x00RRGGBB (always >= 0)
 
 
-def create_volume(dims_xyz: Tuple[int, int, int], device="cpu") -> TSDFVolume:
-    """Allocate a zeroed volume; dims given as (X, Y, Z) like the config."""
+def create_volume(dims_xyz: Tuple[int, int, int], device="cuda") -> TSDFVolume:
+    """Allocate a zeroed volume on `device`; dims given as (X, Y, Z) like
+    the config. "cuda" without a usable CUDA device raises."""
+    device = resolve_device(device)
     x, y, z = dims_xyz
     shape = (z, y, x)
     return TSDFVolume(

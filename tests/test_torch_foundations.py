@@ -127,7 +127,7 @@ def test_tsdf_fixed_point_and_packing_match_jax():
                                   np.asarray(jtsdf.pack_rgb(jnp.asarray(rgb))))
 
     jv = jtsdf.create_volume((8, 16, 24))
-    tv = ttsdf.create_volume((8, 16, 24))
+    tv = ttsdf.create_volume((8, 16, 24), device="cpu")
     for ja, ta in zip(jv, tv):
         assert tuple(ta.shape) == ja.shape
         assert str(ta.dtype).removeprefix("torch.") == str(ja.dtype)
@@ -183,12 +183,20 @@ def test_numpy_copies_match_jax():
 # ---- fail-loud checks ----------------------------------------------------
 
 
-def test_icp_mode_warped_raises():
-    from kinfu_tpu_torch.tracking.icp import resolve_icp_mode
+def test_icp_mode_warped_raises(monkeypatch, tmp_path):
+    """Warped ICP is ported: the mode no longer raises by itself. On a
+    tensor that is not on the CPU it launches K1 or raises: with no kernel
+    library (no nvcc to build it), it raises."""
+    from kinfu_tpu_torch.tracking.icp import resolve_icp_mode, rigid_icp
 
-    assert resolve_icp_mode(tcfg.KinFuParams()) == "gather"
-    with pytest.raises(NotImplementedError, match="K1"):
-        resolve_icp_mode(tcfg.KinFuParams(icp_mode="warped"))
+    assert resolve_icp_mode(tcfg.KinFuParams(icp_mode="warped"), "cpu") == "warped"
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    m = [torch.empty((12, 16, 3), device="meta")]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rigid_icp(m, m, m, m, TIntr(16, 12, 10.0, 10.0, 7.5, 5.5),
+                  tcfg.KinFuParams(pyramid_height=1, icp_iters=(1,), icp_mode="warped"))
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -208,12 +216,14 @@ def test_non_fused_step_raises():
     for params in (tcfg.tiny_params(16).replace(fused_mode="off"),
                    tcfg.tiny_params(16),  # "auto" off CUDA
                    tcfg.tiny_params(128).replace(fused_mode="on", raycast_mode="hier")):
-        state = init_state(params, intr)
+        state = init_state(params, intr, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             kinfu_step(state, depth, color, params, intr)
+    # the fused step takes warped ICP (K1's plain version on the CPU)
     params = tcfg.tiny_params(128).replace(fused_mode="on", icp_mode="warped")
-    with pytest.raises(NotImplementedError, match="K1"):
-        kinfu_step(init_state(params, intr), depth, color, params, intr)
+    state, out = kinfu_step(init_state(params, intr, device="cpu"), depth, color, params, intr)
+    assert bool(out.tracking_ok) and int(out.icp_inliers) == 0
+    assert int(state.frame_count) == 2
 
 
 def test_non_cpu_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
@@ -246,7 +256,9 @@ def test_port_imports_no_jax():
         import kinfu_tpu_torch
         import kinfu_tpu_torch.pipeline.kinfu, kinfu_tpu_torch.ops.kernels
         import kinfu_tpu_torch.data.synthetic, kinfu_tpu_torch.eval.ate
-        import kinfu_tpu_torch.io.poses
+        import kinfu_tpu_torch.io.poses, kinfu_tpu_torch.io.ply, kinfu_tpu_torch.io.checkpoint
+        import kinfu_tpu_torch.pipeline.session, kinfu_tpu_torch.pipeline.viz3d
+        import kinfu_tpu_torch.ops.icp_warped, kinfu_tpu_torch.volume.extract
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

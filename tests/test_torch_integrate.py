@@ -126,7 +126,7 @@ def test_face_ownership_exclusive():
     sweeps update disjoint voxel sets, and all six together update every
     voxel at most once."""
     T = _pose(45.0, -35.0)
-    zero = tuple(a.numpy() for a in create_volume(PARAMS.volume_dims))
+    zero = tuple(a.numpy() for a in create_volume(PARAMS.volume_dims, device="cpu"))
     seen = np.zeros((128, 128, 128), np.int32)
     faces_hit = 0
     for name in ALL_FACES:
@@ -150,3 +150,27 @@ def test_sweep_gate_off_leaves_volume():
                        SPEC, torch.tensor(False))
     for got, want in zip(vol, prior):
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sweep_counts_the_voxels_it_changes():
+    """sweep_face_plain returns what K3's bound charges: the voxels whose
+    TSDF and weight it updated and those whose colour it mixed. On an empty
+    volume every update raises the weight; a colour word with bit 30 set
+    changes wherever a colour is mixed, since the mix writes 24 bits."""
+    T = CASES[0][1]
+    depth_m, color = _frame(T)
+    frame = next(f for f in face_frames() if f.name == "+z")
+    vol = create_volume(PARAMS.volume_dims, device="cpu")
+    vol.color.fill_(1 << 30)
+    on = torch.tensor(True)
+    A, c_p = tfi.face_geometry(_vol2cam(T), frame, PARAMS.volume_dims, PARAMS.voxel_size)
+    rk, ck = tfi.build_face(torch.as_tensor(depth_m), tfi.pack_rgb(torch.as_tensor(color)),
+                            tfi.face_params(A, INTR, on, SPEC), SPEC)
+    prm = tfi.sweep_params(c_p, tfi.primed_voxel_size(frame, PARAMS.voxel_size), SPEC, PARAMS,
+                           rk.max().float(), on)
+    dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
+    n_upd, n_col = tfi.sweep_face_plain(vol, frame, rk, ck, prm,
+                                        tfi.plane_table(SPEC, prm, dims_p))
+    assert int(n_upd) == int((vol.weight != 0).sum()) > 10_000
+    assert int(n_col) == int((vol.color != 1 << 30).sum()) > 1_000
+    assert int(n_col) < int(n_upd)

@@ -22,7 +22,7 @@ from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose, inverse, rodrigues
 from kinfu_tpu_torch.ops import face_raycast as tfr
-from kinfu_tpu_torch.ops.face_integrate import faces_needed, prime
+from kinfu_tpu_torch.ops.face_integrate import faces_needed, prime, unprime
 from kinfu_tpu_torch.ops.facewarp import face_frames, face_params
 
 torch.set_num_threads(2)
@@ -155,3 +155,29 @@ def test_gate_off_gives_no_events(faces):
     t, n = tfr.resample_face(torch.as_tensor(it["ref"]["t_f"]),
                              torch.as_tensor(it["ref"]["n_f"]).contiguous(), prm5, INTR)
     assert (t >= 1e30).all() and not n.any()
+
+
+def test_sweep_work_counts_what_the_march_reads(faces):
+    """sweep_rays_work's voxels (what K4's bound charges) are all the march
+    reads: the hits and backs do not change when every other voxel is
+    overwritten. Each sampled voxel costs a ray-plane step, and a gated-off
+    face costs nothing."""
+    rng = np.random.default_rng(3)
+    for it in faces:
+        prm = tfr.ray_params(torch.as_tensor(it["org_p"]), it["vs_p"], SPEC,
+                             torch.tensor(True))
+        tsdf = torch.as_tensor(it["tsdf"])
+        touched = torch.zeros(tsdf.numel(), dtype=torch.bool)
+        hit, back, steps = tfr._march(tsdf, it["frame"], prm, SPEC, touched)
+        n_vox, n_steps = tfr.sweep_rays_work(tsdf, it["frame"], prm, SPEC)
+        tag = f"{it['case']} {it['frame'].name}"
+        assert int(n_vox) == int(touched.sum()) and int(n_steps) == int(steps), tag
+        assert 0 < int(n_vox) <= int(n_steps), tag
+        t_p = prime(tsdf, it["frame"]).reshape(-1)
+        noise = torch.as_tensor(rng.integers(-32767, 32768, t_p.shape[0]).astype(np.int16))
+        t_p = torch.where(touched, t_p, noise).reshape(prime(tsdf, it["frame"]).shape)
+        hit2, back2 = tfr.sweep_rays_plain(unprime(t_p, it["frame"]).contiguous(),
+                                           it["frame"], prm, SPEC)
+        assert torch.equal(hit, hit2) and torch.equal(back, back2), tag
+    prm = tfr.ray_params(torch.as_tensor(it["org_p"]), it["vs_p"], SPEC, torch.tensor(False))
+    assert [int(c) for c in tfr.sweep_rays_work(tsdf, it["frame"], prm, SPEC)] == [0, 0]

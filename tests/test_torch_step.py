@@ -71,9 +71,9 @@ def runs():
     return frames, gt, jax_orbit, jax_fail, port_orbit, port_fail
 
 
-def _track(frames, state=None, **kw):
-    step = make_step_fn(PARAMS, INTR, **kw)
-    state = state if state is not None else init_state(PARAMS, INTR)
+def _track(frames, state=None, params=PARAMS, **kw):
+    step = make_step_fn(params, INTR, **kw)
+    state = state if state is not None else init_state(params, INTR, device="cpu")
     outs = []
     for d, c in frames:
         state, out = step(state, torch.as_tensor(d), torch.as_tensor(c))
@@ -105,11 +105,26 @@ def test_step_matches_jax_over_orbit(runs):
     assert ate < 2e-3, f"ATE {ate * 1e3:.3f} mm"
 
 
+def test_warped_icp_step_matches_gather_step(runs):
+    """The port's step with warped ICP (K1's plain version) tracks the orbit
+    as the gather step does: the two differ only in how the distance and
+    angle gates are compared (squares against norms)."""
+    frames, _, _, _, gather_orbit, _ = runs
+    warped_orbit = _track(frames, params=PARAMS.replace(icp_mode="warped"))
+    for k, ((st, out), (gst, gout)) in enumerate(zip(warped_orbit, gather_orbit)):
+        assert bool(out.tracking_ok) and bool(gout.tracking_ok), k
+        np.testing.assert_allclose(out.pose_matrix.numpy(), gout.pose_matrix.numpy(), rtol=0,
+                                   atol=POSE_TOL, err_msg=f"frame {k}")
+        assert int(out.icp_inliers) == int(gout.icp_inliers), k
+        assert int(st["frame_count"]) == int(gst["frame_count"])
+        _assert_volume_close(st, gst, f"frame {k}")
+
+
 def test_state_carries_across_from_jax(runs):
     """The JAX state after two frames, carried over as numpy arrays, gives
     the JAX package's third step."""
     frames, _, jax_orbit, *_ = runs
-    state = state_from_numpy(jax_orbit[1])
+    state = state_from_numpy(jax_orbit[1], device="cpu")
     for key in ("tsdf", "weight", "color", "pose", "frame_count"):
         np.testing.assert_array_equal(state_to_numpy(state)[key], jax_orbit[1][key])
     (st, out), = _track(frames[2:3], state=state)
@@ -155,7 +170,7 @@ def test_kinfu_step_is_the_bound_step():
     """make_step_fn binds the configuration; the step updates the state's
     volume in place."""
     frames, _ = _frames()
-    st0 = init_state(PARAMS, INTR)
+    st0 = init_state(PARAMS, INTR, device="cpu")
     tsdf = st0.vol.tsdf
     st1, out = kinfu_step(st0, torch.as_tensor(frames[0][0]), torch.as_tensor(frames[0][1]),
                           PARAMS, INTR)

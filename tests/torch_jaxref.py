@@ -194,6 +194,65 @@ def face_pass_parts(tsdf_p, origin_p, vs_p, A, intr, spec):
     return dict(hit=hit, back=back, t_f=t_f, n_f=n_f, ok=ok, t_cam=t_cam, n_cam=n_cam)
 
 
+@functools.lru_cache(maxsize=None)
+def _icp_warped_fn(intr, dist, sin):
+    import jax
+
+    from kinfu_tpu.geometry.se3 import Pose
+    from kinfu_tpu.ops.pallas_icp import icp_normal_eqs_warped
+
+    return jax.jit(lambda R, t, cv, cn, pv, pn: icp_normal_eqs_warped(
+        Pose(R, t), cv, cn, pv, pn, _intr(intr), dist, sin, interpret=True))
+
+
+def icp_normal_eqs_warped(R, t, cur_vmap, cur_nmap, pre_vmap, pre_nmap, intr, dist, sin):
+    """pallas_icp.icp_normal_eqs_warped (interpret): (A, b, inliers)."""
+    A, b, n = _icp_warped_fn(tuple(intr), dist, sin)(R, t, cur_vmap, cur_nmap, pre_vmap,
+                                                     pre_nmap)
+    return np.asarray(A), np.asarray(b), int(n)
+
+
+def rigid_icp(cur_vmaps, cur_nmaps, pre_vmaps, pre_nmaps, intr, params_kw):
+    """tracking.icp.rigid_icp: (R, t, ok, inliers) of the increment."""
+    import jax
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.tracking.icp import rigid_icp as fn
+
+    params = KinFuParams(**dict(params_kw))
+    res = jax.jit(lambda *m: fn(*m, _intr(intr), params))(
+        list(cur_vmaps), list(cur_nmaps), list(pre_vmaps), list(pre_nmaps))
+    return (np.asarray(res.pose.R), np.asarray(res.pose.t), bool(res.ok),
+            int(res.num_inliers))
+
+
+def render(eye_t, vmap, nmap):
+    """pipeline.render, jitted as the session runs it: (phong, normals)."""
+    import jax
+
+    from kinfu_tpu.pipeline.render import render_normals, render_phong
+
+    return _np((jax.jit(render_phong)(eye_t, vmap, nmap), jax.jit(render_normals)(nmap)))
+
+
+def extract(tsdf, weight, color, params_kw, max_points):
+    """volume.extract at the default volume pose, jitted as the session runs
+    it: ((points, count), (points, rgb, count))."""
+    import jax
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.pipeline.kinfu import _volume_pose
+    from kinfu_tpu.volume.extract import extract_points, extract_points_colored
+    from kinfu_tpu.volume.tsdf import TSDFVolume
+
+    params = KinFuParams(**dict(params_kw))
+    vol = TSDFVolume(tsdf, weight, color)
+    plain = jax.jit(lambda v: extract_points(v, _volume_pose(params), params, max_points))
+    colored = jax.jit(
+        lambda v: extract_points_colored(v, _volume_pose(params), params, max_points))
+    return _np((plain(vol), colored(vol)))
+
+
 def kinfu_track(params_kw, intr, sequences):
     """pipeline.kinfu: init_state + one jitted step over each frame sequence;
     returns, per sequence and frame, the state as numpy fields and the
