@@ -12,7 +12,11 @@ Phases; any failure exits non-zero before the result line:
      largest entry, the same bits on a second launch); K2 build_face, K3
      face_integrate, K4 sweep_rays and K5 resample_face on that 512^3 volume
      and frame 3 (all six cube faces seen from the orbit pose, and each face
-     seen from the volume's centre looking along it);
+     seen from the volume's centre looking along it); K3's and K4's time
+     for a gated-off call, K3's footprint voxels beside the voxels of its
+     admitted planes, and K4's count of rays whose hit or back bits differ
+     from the plain version's (no profiler before phase 4: once started in
+     a process it slows every later launch);
   4. run the 50-frame orbit of bench.py (640x480, fx=fy=525, 512^3 over 3 m,
      3-level pyramid, ICP (4,5,10), icp_mode="auto", which is the warped ICP
      kernel K1 on the card) through init_state + kinfu_step with the launch
@@ -25,8 +29,10 @@ Phases; any failure exits non-zero before the result line:
      aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
      Phong render, the point cloud, the PLY and pose files, and a
      checkpoint that is loaded and tracks one more frame;
-  6. profile 8 steps of a fresh run: kernel time per frame and the
-     device's idle share (the full table goes to --profile-table);
+  6. profile 8 steps of a fresh run: kernel time per frame, each port
+     kernel's device time per frame and a launch (per frame, its longest
+     launch, the active face on the orbit, and the others, gated off), and
+     the device's idle share (the full table goes to --profile-table);
   7. print one JSON line describing the kernels, then the card, then the
      result line.
 
@@ -91,8 +97,8 @@ HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 #: float32 operations per work item, counted from each kernel's source and
 #: rounded up: K1 per current pixel; K2 per face-stack pixel; K3 per voxel of
-#: a plane its gate admits (projection and ownership), per voxel it updates
-#: and per voxel whose colour it mixes; K4 per ray-plane step; K5 per camera
+#: a plane's footprint (projection and ownership), per voxel it updates and
+#: per voxel whose colour it mixes; K4 per ray-plane step; K5 per camera
 #: pixel
 OPS = {"icp_normal_eqs": 150, "build_face": 40, "face_integrate_gate": 24,
        "face_integrate_update": 24, "face_integrate_colour": 20, "sweep_rays": 15,
@@ -182,7 +188,11 @@ def check_kernels(state, frame, pose, params, intr, device):
     views and in the timed one, K2's image must be non-empty, K3 must update
     voxels, K4 must hit the surface and K5 must resample a hit. Returns
     {key: [max_abs_err, ms, plain_ms, bound_ms, bound_by]}, the times and
-    bounds of the timed view."""
+    bounds of the timed view. Prints, for the timed view, K3's and K4's
+    times for a gated-off call (CUDA events: mostly the wrapper's host time;
+    phase 6 gives the device's) and K3's footprint voxels beside the voxels
+    of its admitted planes; for every view, K4's count of rays whose hit or
+    back bits differ from the plain version's."""
     import torch
 
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
@@ -206,7 +216,7 @@ def check_kernels(state, frame, pose, params, intr, device):
     vol = state.vol
     res = {k: [0.0, float("nan"), float("nan"), float("nan"), ""]
            for k, *_ in KERNELS if k != "icp_normal_eqs"}
-    k4_agree = []
+    k4_agree, k4_differ = [], 0
 
     views = [("orbit", pose, f) for f in fw.face_frames()]
     views += [("inside", inside_view(f, params), f) for f in fw.face_frames()]
@@ -238,7 +248,7 @@ def check_kernels(state, frame, pose, params, intr, device):
 
         # K3 on copies of the fused volume
         prm3 = fi.sweep_params(c_p, fw.primed_voxel_size(frame_, vs), fspec, params,
-                               rk.max().float(), on)
+                               rk.max().float(), on, prm2, intr)
         dims_p = tuple(vol.tsdf.shape[a] for a in frame_.axes)
         table = fi.plane_table(fspec, prm3, dims_p)
         vk = TSDFVolume(*(a.clone() for a in vol))
@@ -261,15 +271,29 @@ def check_kernels(state, frame, pose, params, intr, device):
             res["face_integrate"][1] = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, prm3, table))
             res["face_integrate"][2] = ms(
                 lambda: fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table), reps=10, warmup=1)
+            off3 = prm3.clone()
+            off3[11] = 0.0
+            k3_off = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, off3, table))
             # tsdf + weight (4 bytes) read and written where it updates, colour
             # (4 bytes) read and written where it mixes; the face stack, the
-            # table and the parameters read once. Every voxel of an admitted
-            # plane is projected and tested for ownership.
+            # table and the parameters read once. Every voxel of a plane's
+            # footprint is projected and tested for ownership (the bound by
+            # every voxel of the admitted planes is printed beside it).
             admitted = int((table[:, -1] != 0).sum()) * dims_p[1] * dims_p[2]
+            in_fp = int(fi.footprint_voxels(fi.plane_footprint(table, prm3, dims_p)))
+            old_ops = bound(8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
+                            OPS["face_integrate_gate"] * admitted
+                            + OPS["face_integrate_update"] * n_upd
+                            + OPS["face_integrate_colour"] * n_col)
             res["face_integrate"][3:] = bound(
                 8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
-                OPS["face_integrate_gate"] * admitted + OPS["face_integrate_update"] * n_upd
+                OPS["face_integrate_gate"] * in_fp + OPS["face_integrate_update"] * n_upd
                 + OPS["face_integrate_colour"] * n_col)
+            print(f"  K3 {tag}: {in_fp} footprint voxels, {admitted} voxels of the admitted "
+                  f"planes; bound {res['face_integrate'][3]:.4f} ms "
+                  f"({res['face_integrate'][4]}) by the footprint, {old_ops[0]:.4f} ms "
+                  f"({old_ops[1]}) by the admitted planes; a gated-off call {k3_off:.4f} ms",
+                  flush=True)
         del vk, vp
 
         # K4 on the fused volume
@@ -284,9 +308,12 @@ def check_kernels(state, frame, pose, params, intr, device):
         agree = float((okk == okp).float().mean())
         both = okk & okp
         dt4 = float((hk - hp).abs()[both].max()) if bool(both.any()) else 0.0
+        differ = int(((hk.view(torch.int32) != hp.view(torch.int32))
+                      | (bk.view(torch.int32) != bp.view(torch.int32))).sum())
         k4_agree.append(agree)
+        k4_differ += differ
         print(f"  K4 {tag}: {int(okk.sum())} hits, mask agreement {agree:.6f}, "
-              f"max |dt| {dt4:.3g} m", flush=True)
+              f"max |dt| {dt4:.3g} m, {differ} rays with other hit or back bits", flush=True)
         if agree < K4_MASK_AGREE or dt4 > K4_T_TOL:
             _fail(f"K4 {tag}: agreement {agree} < {K4_MASK_AGREE} or |dt| {dt4} > {K4_T_TOL}")
         if must_work and not bool(okk.any()):
@@ -303,6 +330,10 @@ def check_kernels(state, frame, pose, params, intr, device):
                   f"ray-plane steps", flush=True)
             res["sweep_rays"][3:] = bound(2 * n_vox + nbytes(prm4, hk, bk),
                                           OPS["sweep_rays"] * n_steps)
+            off4 = prm4.clone()
+            off4[10] = 0.0
+            print(f"  K4 {tag}: a gated-off call "
+                  f"{ms(lambda: fr.sweep_rays(vol.tsdf, frame_, off4, rspec)):.4f} ms", flush=True)
 
         # K5 on the shaded face fields
         t_f, n_f, _ = fr.face_fields(hp, bp, org_p, rspec)
@@ -324,7 +355,8 @@ def check_kernels(state, frame, pose, params, intr, device):
             res["resample_face"][3:] = bound(nbytes(t_f, n_f, prm5, tk, nk),
                                              OPS["resample_face"] * tk.numel())
     print(f"  K2 and K5 bit-exact, K3 int16/int32 equal on {len(views)} views; "
-          f"K4 min mask agreement {min(k4_agree):.6f}", flush=True)
+          f"K4 min mask agreement {min(k4_agree):.6f}, {k4_differ} rays with other hit or "
+          f"back bits in all", flush=True)
     return res
 
 
@@ -510,10 +542,12 @@ def run_session(frames, gt, ref_poses, params, intr, out_dir: Path, **session_kw
 
 def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
                   n: int = 10) -> None:
-    """Phase 5: torch.profiler over frames 2..n-1 of a fresh run. Prints the
+    """Phase 6: torch.profiler over frames 2..n-1 of a fresh run. Prints the
     kernels by device time, their sum per frame and its share of `ms_frame`
-    (the step's time without the profiler), and writes the full table to
-    `out_path`."""
+    (the step's time without the profiler), each port kernel's device time
+    per frame and a launch (per frame, its longest launch and the median of
+    the others: on the orbit, the active face and the gated-off ones), and
+    writes the full table to `out_path`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -546,6 +580,20 @@ def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
     for e in ev[:12]:
         print(f"      {e.self_device_time_total / 1e3 / (n - 2):9.3f} ms/frame "
               f"{e.count // (n - 2):5d}x  {e.key[:90]}", flush=True)
+    launches_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for key, name, *_ in KERNELS:
+        mine = sorted((e for e in launches_ev if f"{key}_kernel" in e.name),
+                      key=lambda e: e.time_range.start)
+        each = [e.time_range.elapsed_us() / 1e3 for e in mine]
+        per = len(each) // (n - 2)
+        line = (f"    {name}: device {sum(each) / (n - 2):.3f} ms/frame in "
+                f"{len(each) / (n - 2):.0f} launches/frame")
+        if per > 1 and per * (n - 2) == len(each):
+            frames_ = [sorted(each[i * per:(i + 1) * per]) for i in range(n - 2)]
+            line += (f"; a launch: {float(np.median([f[-1] for f in frames_])):.4f} ms the "
+                     f"longest of a frame, {float(np.median([t for f in frames_ for t in f[:-1]])):.4f}"
+                     f" ms the others (medians)")
+        print(line, flush=True)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     Path(out_path).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=80, max_name_column_width=90))

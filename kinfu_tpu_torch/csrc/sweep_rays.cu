@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel kinfu_tpu/ops/pallas_raycast.py::_sweep_kernel
 // (L114-284; pallas_call in _sweep_face_rays at L465). One thread per face
-// ray d' = ((j-c)/f, (i-c)/f, 1) marches every primed plane in order, one
+// ray d' = ((j-c)/f, (i-c)/f, 1) marches the primed planes in order, one
 // nearest-voxel sample per plane, reading the natural [Z, Y, X] volume
 // through the face's signed axis permutation (no transpose and flip of the
 // volume as at L689-691). Kept as semantics: the static 8x128-tile
@@ -16,10 +16,32 @@
 //
 // Bound on this card: the distinct int16 voxels the rays sample before they
 // resolve, 2 bytes each (48.2 M voxels, 0.030 ms, on the 640x480 orbit's +z
-// view at 512^3; chip_smoke.py counts them with sweep_rays_work). Each ray
-// reads one sample per plane, and neighbouring rays touch neighbouring rows
-// only in the sweep direction's plane, so most loads are separate 32-byte
-// sectors. The design does nothing about it yet.
+// view at 512^3; chip_smoke.py counts them with sweep_rays_work). What holds
+// the march back is not bytes: each plane's sample decides whether the ray
+// stops there, most face rays miss and cross the whole volume, and a warp
+// runs as long as its longest ray. With kBatch loads in flight the time no
+// longer follows kBatch (4, 8 and 16 measure alike), so it is set by
+// instruction issue over the marched planes; the intervals are a small part.
+//
+// Design:
+//   - Each ray marches only its interval [z_first, z_last]: z_first is the
+//     first plane where its sample can be valid or an outward exit can fire,
+//     z_last the plane where the exit fires (the ray resolves there at the
+//     latest) or else its last valid plane. Every condition is monotone in
+//     the plane index (t_m, and each axis's sample index, move one way), so
+//     bisection on the march's own float expressions finds the interval
+//     exactly. The valid planes are then one run [z_first, v_last]: before
+//     it the march would carry fp = NaN and change nothing, inside it no exit
+//     can fire, and past it only the exit at z_last. So the kernel samples
+//     the run with the same expressions as before but without the per-plane
+//     bounds and exit tests, and sets back = t at z_last for a ray that the
+//     run left unresolved. Plain twin: ops/face_raycast.py::ray_plane_interval.
+//   - The run goes kBatch planes at a time: their loads into registers, then
+//     the front/back rules in plane order, breaking at the same plane as
+//     before. kBatch loads are in flight per thread, at most kBatch - 1 read
+//     past the plane that resolves the ray.
+//   - A 32x8 block lies inside one 8x128 ownership tile, so its first warp
+//     tests the tile once for the block.
 #include <cmath>
 
 #include <cuda_runtime.h>
@@ -28,31 +50,86 @@
 
 namespace {
 
-// any pixel of the `tile`-wide tile holding p lies inside the padded cone
-__device__ bool tile_owned(int p, int tile, float c, float inv_f, float own_tan) {
-  const int q0 = (p / tile) * tile;
-  for (int q = q0; q < q0 + tile; ++q) {
-    if (fabsf((static_cast<float>(q) - c) * inv_f) <= own_tan) return true;
-  }
-  return false;
+constexpr int kBatch = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float plane_t(int zg, float vsz, float oz) {
+  return static_cast<float>(zg) * vsz - oz;
 }
 
-__global__ void sweep_rays_kernel(const short* __restrict__ tsdf,
-                                  const float* __restrict__ prm, float* __restrict__ hit,
-                                  float* __restrict__ back, int nZ, int nY, int nX,
-                                  int ax0, int ax1, int ax2, int flip, int F) {
+// the sample index along one primed axis at plane zg
+__device__ __forceinline__ int axis_index(int zg, float vsz, float oz, float o, float d,
+                                          float inv_vs) {
+  const float ts = fmaxf(plane_t(zg, vsz, oz), 1e-6f);
+  return kinfu::rint_clamped((o + d * ts) * inv_vs);
+}
+
+// first plane of [0, n) where `pred` holds, n if none; pred is false, then
+// true, along the planes
+template <class Pred>
+__device__ int first_plane(int n, Pred pred) {
+  int a = 0, b = n;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if (pred(m)) {
+      b = m;
+    } else {
+      a = m + 1;
+    }
+  }
+  return a;
+}
+
+// One primed axis of N voxels: the first plane whose sample lies in [1, N-2]
+// when the ray moves inward (*in_lo), and the first plane of the outward
+// exit (*out), Zp if none; in between the sample is inside.
+__device__ void axis_span(int Zp, int N, float vsz, float oz, float o, float d, float inv_vs,
+                          int* in_lo, int* out) {
+  if (d > 0.0f) {
+    *in_lo = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) >= 1; });
+    *out = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) >= N - 1; });
+  } else if (d < 0.0f) {
+    *in_lo = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) <= N - 2; });
+    *out = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) <= 0; });
+  } else {  // the sample stays where it is and never exits
+    const int i = axis_index(0, vsz, oz, o, d, inv_vs);
+    *in_lo = i >= 1 && i <= N - 2 ? 0 : Zp;
+    *out = Zp;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
+                  float* __restrict__ hit, float* __restrict__ back, int nZ, int nY, int nX,
+                  int ax0, int ax1, int ax2, int flip, int F) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= F || j >= F) return;
   const float ox = prm[0], oy = prm[1], oz = prm[2];
   const float vsx = prm[3], vsy = prm[4], vsz = prm[5];
   // the face focal is static in the JAX package, whose compiler multiplies
   // by its float32 reciprocal instead of dividing
   const float inv_f = 1.0f / prm[6], c = prm[7], t_cover = prm[8], own_tan = prm[9];
+
+  // any pixel of the block's 8-row tile and of its 128-column tile lies
+  // inside the padded cone
+  __shared__ bool s_owned;
+  if (threadIdx.y == 0) {
+    const int lane = threadIdx.x;
+    const int q0 = (blockIdx.x * blockDim.x / 128) * 128;
+    bool col = false;
+    for (int q = q0 + lane; q < q0 + 128; q += 32) {
+      col = col || fabsf((static_cast<float>(q) - c) * inv_f) <= own_tan;
+    }
+    const bool row =
+        lane < 8 && fabsf((static_cast<float>(blockIdx.y * 8 + lane) - c) * inv_f) <= own_tan;
+    const bool owned = __any_sync(kFull, col) && __any_sync(kFull, row);
+    if (lane == 0) s_owned = owned;
+  }
+  __syncthreads();
+  if (i >= F || j >= F) return;
   float ht = kinfu::kInf, bt = kinfu::kInf;
 
-  if (prm[10] != 0.0f && tile_owned(i, 8, c, inv_f, own_tan) &&
-      tile_owned(j, 128, c, inv_f, own_tan)) {
+  if (prm[10] != 0.0f && s_owned) {
     const int dims[3] = {nZ, nY, nX};
     const long long strides[3] = {static_cast<long long>(nY) * nX, nX, 1};
     const int Zp = dims[ax0], Yp = dims[ax1], Xp = dims[ax2];
@@ -67,37 +144,58 @@ __global__ void sweep_rays_kernel(const short* __restrict__ tsdf,
     const float dx = (static_cast<float>(j) - c) * inv_f;
     const float inv_vsx = 1.0f / vsx;
     const float inv_vsy = 1.0f / vsy;
+
+    // the interval: t_ok on [p_t, p_c), each axis inside on [*_in, *_out),
+    // an exit from the first plane of either axis's exit
+    const int p_t = first_plane(Zp, [&](int z) { return plane_t(z, vsz, oz) > 1e-6f; });
+    const int p_c = first_plane(Zp, [&](int z) { return plane_t(z, vsz, oz) > t_cover; });
+    int x_in, x_out, y_in, y_out;
+    axis_span(Zp, Xp, vsz, oz, ox, dx, inv_vsx, &x_in, &x_out);
+    axis_span(Zp, Yp, vsz, oz, oy, dy, inv_vsy, &y_in, &y_out);
+    const int v_lo = max(max(p_t, 1), max(x_in, y_in));
+    const int v_hi = min(min(p_c, Zp - 1), min(x_out, y_out)) - 1;
+    const int e = max(p_t, min(x_out, y_out));
+    const bool exits = e < p_c;
+
+    // the valid run [v_lo, v_hi], kBatch planes at a time: their loads, then
+    // the front / back rules in plane order (no exit can fire before e, past
+    // v_hi); fp is NaN at v_lo, whose previous plane is not valid
     float fp = NAN;
-    for (int zg = 0; zg < Zp; ++zg) {
-      const float t_m = static_cast<float>(zg) * vsz - oz;
-      const bool t_ok = t_m > 1e-6f && t_m <= t_cover;
-      const float ts = fmaxf(t_m, 1e-6f);
-      const float yv = (oy + dy * ts) * inv_vsy;
-      const float xv = (ox + dx * ts) * inv_vsx;
-      const int yi = kinfu::rint_clamped(yv);
-      const int xi = kinfu::rint_clamped(xv);
-      const bool valid = t_ok && zg >= 1 && zg < Zp - 1 && yi >= 1 && yi < Yp - 1 &&
-                         xi >= 1 && xi < Xp - 1;
-      float f_new = 0.0f;
-      if (valid) {
-        f_new = static_cast<float>(tsdf[base + zg * s0 + yi * s1 + xi * s2]) * kinfu::kInvShort;
+    bool done = false;
+    for (int z0 = v_lo; z0 <= v_hi && !done; z0 += kBatch) {
+      short raw[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int zg = z0 + k;
+        raw[k] = 0;
+        if (zg <= v_hi) {
+          const float ts = fmaxf(plane_t(zg, vsz, oz), 1e-6f);
+          const float yv = (oy + dy * ts) * inv_vsy;
+          const float xv = (ox + dx * ts) * inv_vsx;
+          // rint_clamped's clamp is idle here: the indices lie in [1, N-2]
+          raw[k] = tsdf[base + zg * s0 + __float2int_rn(yv) * s1 + __float2int_rn(xv) * s2];
+        }
       }
-      // a NaN previous sample fails both comparisons (no event)
-      const bool front = valid && fp > 0.0f && f_new < 0.0f;
-      const bool bk = valid && fp < 0.0f && f_new > 0.0f;
-      if (front) {
-        const float denom = fp - f_new;
-        const float frac = fp / (fabsf(denom) < 1e-30f ? 1e-30f : denom);
-        ht = t_m - vsz + vsz * frac;
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int zg = z0 + k;
+        if (done || zg > v_hi) break;
+        const float f_new = static_cast<float>(raw[k]) * kinfu::kInvShort;
+        // a NaN previous sample fails both comparisons (no event)
+        const bool front = fp > 0.0f && f_new < 0.0f;
+        const bool bk = fp < 0.0f && f_new > 0.0f;
+        if (front) {
+          const float denom = fp - f_new;
+          const float frac = fp / (fabsf(denom) < 1e-30f ? 1e-30f : denom);
+          ht = plane_t(zg, vsz, oz) - vsz + vsz * frac;
+        }
+        if (bk) bt = plane_t(zg, vsz, oz);
+        fp = f_new;
+        done = front || bk;  // resolved
       }
-      if (bk) bt = t_m;
-      const bool exit_out = ((xi >= Xp - 1 && dx > 0.0f) || (xi <= 0 && dx < 0.0f) ||
-                             (yi >= Yp - 1 && dy > 0.0f) || (yi <= 0 && dy < 0.0f)) &&
-                            t_ok;
-      if (!front && !bk && exit_out) bt = t_m;
-      fp = valid ? f_new : NAN;
-      if (ht < kinfu::kInf || bt < kinfu::kInf) break;  // resolved
     }
+    // unresolved: the outward exit at e, whose sample is not valid
+    if (!done && exits) bt = plane_t(e, vsz, oz);
   }
   hit[static_cast<long long>(i) * F + j] = ht;
   back[static_cast<long long>(i) * F + j] = bt;
@@ -108,8 +206,10 @@ __global__ void sweep_rays_kernel(const short* __restrict__ tsdf,
 extern "C" int kinfu_sweep_rays(const void* tsdf, const void* prm, void* hit, void* back,
                                 int nZ, int nY, int nX, int ax0, int ax1, int ax2, int flip,
                                 int F, void* stream) {
+  // a block must lie inside one 8x128 ownership tile
+  if (F % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(32, 8);
-  const dim3 grid((F + block.x - 1) / block.x, (F + block.y - 1) / block.y);
+  const dim3 grid(F / block.x, F / block.y);
   sweep_rays_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const short*>(tsdf), static_cast<const float*>(prm),
       static_cast<float*>(hit), static_cast<float*>(back), nZ, nY, nX, ax0, ax1, ax2, flip,

@@ -11,9 +11,11 @@ expressions as the TPU kernel's; plain PyTorch evaluates them for every
 plane into a small device table that the sweep reads.
 
 K3 (`sweep_face`, csrc/face_integrate.cu) replaces the Pallas kernel
-`_kernel` (kinfu_tpu/ops/pallas_integrate.py:204-390): one CUDA thread per
-voxel of the natural [Z, Y, X] volume, in place. `sweep_face_plain` is its
-plain PyTorch version.
+`_kernel` (kinfu_tpu/ops/pallas_integrate.py:204-390), in place: each block
+schedules, in natural coordinates, only the voxels inside each plane's
+footprint (`plane_footprint`, the rectangle of primed voxels that can pass
+the face-pixel and ownership tests and see the camera's frustum), one CUDA
+thread per voxel. `sweep_face_plain` is its plain PyTorch version.
 
 Differences of form from the TPU kernel, none of result:
   - no prime/unprime transposes of the volume (L422-431): the kernel maps
@@ -21,9 +23,9 @@ Differences of form from the TPU kernel, none of result:
   - the 3-window row gather (`_window_gather`, L121-147) is a direct load:
     where `cover_ok` holds the windows cover every row a strip reads, and
     `cover_ok` stays in the ownership mask;
-  - no slab work lists and no y-blocking: the plane gate uses the full Y
-    range, which is the TPU kernel's own gate whenever one y-block spans
-    the whole plane (at 512^3, L465-471).
+  - no y-blocking, and the footprint in place of the slab work lists: the
+    plane gate uses the full Y range, which is the TPU kernel's own gate
+    whenever one y-block spans the whole plane (at 512^3, L465-471).
 """
 
 from __future__ import annotations
@@ -136,17 +138,90 @@ def plane_table(spec: FaceSpec, prm: torch.Tensor, dims_p) -> torch.Tensor:
     return torch.stack([g[k] for k in TABLE_COLS], dim=1).contiguous()
 
 
+def camera_frustum(prm: torch.Tensor):
+    """(tx_lo, tx_hi, ty_lo, ty_hi, ok): bounds of the primed tangents
+    (x'/z', y'/z') of the camera image's rays, from K3's parameter block
+    (the image size at [12:14], K2's block `face_params` at [16:32]). A face
+    pixel can hold an observation only where K2 projects its ray into the
+    image, half a pixel inside the corners taken here; the image maps to a
+    convex quadrilateral of the face, so its corners bound it. ok is False
+    where a corner ray is not in front of the face."""
+    a = prm[16:32]
+    w, h = prm[12], prm[13]
+    lo = torch.full_like(w, -1.0)
+    u = torch.stack([lo, w, lo, w])
+    v = torch.stack([lo, lo, h, h])
+    lx = (u - a[11]) / a[9]
+    ly = (v - a[12]) / a[10]
+    # primed direction = A^T (lx, ly, 1), A row-major camera-from-primed
+    px = a[0] * lx + a[3] * ly + a[6]
+    py = a[1] * lx + a[4] * ly + a[7]
+    pz = a[2] * lx + a[5] * ly + a[8]
+    ok = (pz > 0).all()
+    tx, ty = px / pz, py / pz
+    return tx.min(), tx.max(), ty.min(), ty.max(), ok
+
+
+def plane_footprint(table: torch.Tensor, prm: torch.Tensor, dims_p) -> torch.Tensor:
+    """int64 [Zp, 4] (x_lo, x_hi, y_lo, y_hi), inclusive primed bounds of
+    each plane's footprint: the voxels that can pass K3's tests. The face
+    pixel u = rint(au x + bu) lies in [0, width) only where au x + bu lies
+    in [-0.5, width - 0.5]; |dx| <= dzs only where x lies in
+    [(cx - dzs) / vsx, (cx + dzs) / vsx]; and the pixel holds an
+    observation only where its ray's tangent lies in the camera frustum's
+    bounds (`camera_frustum`), which the voxel's tangent (x vsx - cx) / dzs
+    misses by at most half a pixel of the plane's mip level, vsx / (2 au
+    dzs), plus a margin of one level-0 face pixel, 1 / f. The same for y;
+    each bound widened by one voxel against rounding. A plane whose gate is
+    0, or whose rectangle is empty, gives (0, -1, 0, -1). K3 computes the
+    same rectangles in the kernel; the tests and chip_smoke.py use this
+    twin."""
+    Zp, Yp, Xp = dims_p
+    col = {k: table[:, i] for i, k in enumerate(TABLE_COLS)}
+    cx, cy, vsx, vsy, f = prm[0], prm[1], prm[3], prm[4], prm[6]
+    dzs, width = col["dzs"], col["width"]
+    tx_lo, tx_hi, ty_lo, ty_hi, seen = camera_frustum(prm)
+
+    def span(a, b, c, vs, t_lo, t_hi, n):
+        lo = torch.maximum((-0.5 - b) / a, (c - dzs) / vs)
+        hi = torch.minimum((width - 0.5 - b) / a, (c + dzs) / vs)
+        dt = 0.5 * vs / (a * dzs) + 1.0 / f
+        lo = torch.where(seen, torch.maximum(lo, (c + dzs * (t_lo - dt)) / vs), lo)
+        hi = torch.where(seen, torch.minimum(hi, (c + dzs * (t_hi + dt)) / vs), hi)
+        return ((torch.floor(lo.clamp(-2.0, n + 2.0)).long() - 1).clamp(min=0),
+                (torch.ceil(hi.clamp(-2.0, n + 2.0)).long() + 1).clamp(max=n - 1))
+
+    x_lo, x_hi = span(col["au"], col["bu"], cx, vsx, tx_lo, tx_hi, Xp)
+    y_lo, y_hi = span(col["av"], col["bv"], cy, vsy, ty_lo, ty_hi, Yp)
+    fp = torch.stack([x_lo, x_hi, y_lo, y_hi], dim=1)
+    empty = (col["slab_do"] == 0) | (x_lo > x_hi) | (y_lo > y_hi)
+    none = torch.tensor([0, -1, 0, -1], device=table.device)
+    return torch.where(empty[:, None], none, fp)
+
+
+def footprint_voxels(fp: torch.Tensor) -> torch.Tensor:
+    """Voxels inside the rectangles of `plane_footprint` (device count)."""
+    return ((fp[:, 1] - fp[:, 0] + 1).clamp(min=0) * (fp[:, 3] - fp[:, 2] + 1).clamp(min=0)).sum()
+
+
 def sweep_params(c_primed: torch.Tensor, vs_p, spec: FaceSpec,
                  params: KinFuParams, r_max_mm: torch.Tensor,
-                 gate: torch.Tensor) -> torch.Tensor:
-    """K3's device parameter block f32[16]: primed camera centre (3), primed
+                 gate: torch.Tensor, face_prm: torch.Tensor,
+                 intr: Intrinsics) -> torch.Tensor:
+    """K3's device parameter block f32[32]: primed camera centre (3), primed
     voxel size (3), face focal, face centre, trunc (mm), max weight, max
-    observed range (mm), gate (1 = sweep, 0 = leave the volume as it is)."""
+    observed range (mm), gate (1 = sweep, 0 = leave the volume as it is),
+    the camera image's width and height, 2 spare, then K2's parameter block
+    `face_prm` (16), from which K3 bounds each plane's footprint by the
+    camera's frustum."""
     dev = c_primed.device
+    f32 = torch.float32
     mid = torch.tensor([*vs_p, spec.focal, spec.centre, params.trunc_dist * 1000.0,
-                        float(params.tsdf_max_weight)], dtype=torch.float32, device=dev)
+                        float(params.tsdf_max_weight)], dtype=f32, device=dev)
+    tail = torch.tensor([float(intr.width), float(intr.height), 0.0, 0.0], dtype=f32,
+                        device=dev)
     return torch.cat([c_primed.float(), mid, r_max_mm.reshape(1).float(),
-                      gate.reshape(1).float(), torch.zeros(4, device=dev)])
+                      gate.reshape(1).float(), tail, face_prm.float()])
 
 
 def prime(a: torch.Tensor, frame: FaceFrame) -> torch.Tensor:
@@ -250,7 +325,7 @@ def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
     kernels.check("face_integrate", vol.color, torch.int32, (Z, Y, X))
     kernels.check("face_integrate", face_color, torch.int32, face_range.shape)
     kernels.check("face_integrate", face_range, torch.int16, face_range.shape)
-    kernels.check("face_integrate", prm, torch.float32, (16,))
+    kernels.check("face_integrate", prm, torch.float32, (32,))
     kernels.check("face_integrate", table, torch.float32, (dims_p[0], len(TABLE_COLS)))
     kernels.launch(
         "kinfu_face_integrate",
@@ -290,11 +365,11 @@ def integrate_face(vol: TSDFVolume, frame: FaceFrame, depth_m: torch.Tensor,
     dims_xyz = tuple(reversed(vol.tsdf.shape))
     vs = params.voxel_size
     A, c_primed = face_geometry(vol2cam, frame, dims_xyz, vs)
-    face_range, face_color = build_face(depth_m, col_packed,
-                                        face_params(A, intr, gate, spec), spec)
+    face_prm = face_params(A, intr, gate, spec)
+    face_range, face_color = build_face(depth_m, col_packed, face_prm, spec)
     r_max_mm = face_range.max().float()
     prm = sweep_params(c_primed, primed_voxel_size(frame, vs), spec, params,
-                       r_max_mm, gate)
+                       r_max_mm, gate, face_prm, intr)
     dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
     sweep_face(vol, frame, face_range, face_color, prm, plane_table(spec, prm, dims_p))
 

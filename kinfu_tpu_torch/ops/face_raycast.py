@@ -10,8 +10,9 @@ and resampled to the camera grid.
 
 K4 (`sweep_rays`, csrc/sweep_rays.cu) replaces `_sweep_kernel`
 (kinfu_tpu/ops/pallas_raycast.py:114-284): one CUDA thread per face ray,
-marching every primed plane in order through the natural volume via the
-face's signed permutation. It keeps the TPU kernel's semantics: the
+marching the primed planes of its interval (`ray_plane_interval`) in order,
+eight loads at a time, through the natural volume via the face's signed
+permutation. It keeps the TPU kernel's semantics: the
 `t_cover` bound of its row windows (L161), the [1, N-2] validity bounds,
 the NaN carry of the previous sample, the front/back/exit rules
 (L254-273), the early exit once a ray has resolved, and the static tile
@@ -185,6 +186,78 @@ def _march(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor, spec: RaySpe
         bt = torch.where(live & ~front & ~back & exit_out, t_m, bt)
         fp = torch.where(valid, f_new, nan)
     return ht, bt, steps
+
+
+def _first_plane(n: int, pred, shape, device) -> torch.Tensor:
+    """Per ray, the first plane of [0, n) where `pred(z)` holds (n if none),
+    by bisection; `pred` is false, then true, along the planes."""
+    a = torch.zeros(shape, dtype=torch.int64, device=device)
+    b = torch.full(shape, n, dtype=torch.int64, device=device)
+    for _ in range(n.bit_length()):
+        m = (a + b) // 2
+        p = pred(m.clamp(max=n - 1)) & (a < b)
+        b = torch.where(p, m, b)
+        a = torch.where(~p & (a < b), m + 1, a)
+    return a
+
+
+def ray_plane_interval(prm: torch.Tensor, frame: FaceFrame, dims_p,
+                       spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per face ray, the planes [z_first, z_last] (int64 [F, F]) that K4
+    marches, and the last plane of their valid run, v_last: from the first
+    plane where the sample can be valid or an outward exit can fire, to the
+    plane where the exit fires (the ray has resolved there at the latest)
+    or else its last valid plane. Each condition of the march is monotone in
+    the plane index, so bisection on the march's own float expressions finds
+    the planes exactly. The valid samples are the run [z_first, v_last]
+    (empty when v_last < z_first); before it the march carries fp = NaN and
+    changes nothing, and past it only the exit at z_last can fire (when
+    z_last > v_last). Rays of unowned tiles and of a gated-off face get
+    empty intervals (z_first = Zp, z_last = v_last = -1).
+    csrc/sweep_rays.cu computes the same in the kernel; the tests use this
+    twin."""
+    Zp, Yp, Xp = dims_p
+    dev = prm.device
+    F = spec.size
+    ox, oy, oz, vsx, vsy, vsz = prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]
+    f, c, t_cover, own_tan, gate = prm[6], prm[7], prm[8], prm[9], prm[10]
+    pix = torch.arange(F, dtype=torch.float32, device=dev)
+    dy = ((pix - c) * (1.0 / f))[:, None].expand(F, F)
+    dx = ((pix - c) * (1.0 / f))[None, :].expand(F, F)
+
+    def t_m(z):
+        return z.float() * vsz - oz
+
+    def first(pred):
+        return _first_plane(Zp, pred, (F, F), dev)
+
+    def span(o, d, inv_vs, n):
+        """(first plane inside [1, n-2] moving inward, first plane of the
+        outward exit), Zp where there is none."""
+        def idx(z):
+            return rint_index((o + d * torch.clamp(t_m(z), min=1e-6)) * inv_vs)
+        up_in, up_out = first(lambda z: idx(z) >= 1), first(lambda z: idx(z) >= n - 1)
+        dn_in, dn_out = first(lambda z: idx(z) <= n - 2), first(lambda z: idx(z) <= 0)
+        i0 = idx(torch.zeros((F, F), dtype=torch.int64, device=dev))
+        flat_in = torch.where((i0 >= 1) & (i0 <= n - 2), 0, Zp)
+        zp = torch.full_like(flat_in, Zp)
+        return (torch.where(d > 0, up_in, torch.where(d < 0, dn_in, flat_in)),
+                torch.where(d > 0, up_out, torch.where(d < 0, dn_out, zp)))
+
+    p_t = first(lambda z: t_m(z) > 1e-6)
+    p_c = first(lambda z: t_m(z) > t_cover)
+    x_in, x_out = span(ox, dx, 1.0 / vsx, Xp)
+    y_in, y_out = span(oy, dy, 1.0 / vsy, Yp)
+    v_lo = torch.maximum(torch.maximum(p_t.clamp(min=1), x_in), y_in)
+    v_hi = torch.minimum(torch.minimum(p_c.clamp(max=Zp - 1), x_out), y_out) - 1
+    e = torch.maximum(p_t, torch.minimum(x_out, y_out))
+    exits = e < p_c
+    has_valid = v_lo <= v_hi
+    z_first = torch.where(has_valid, v_lo, torch.where(exits, e, Zp))
+    z_last = torch.where(exits, e, v_hi)
+    alive = _own_mask(spec, own_tan, dev) & (gate != 0) & (has_valid | exits)
+    return (torch.where(alive, z_first, Zp), torch.where(alive, z_last, -1),
+            torch.where(alive, v_hi, -1))
 
 
 def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,

@@ -1,7 +1,8 @@
 """K3's plain version (kinfu_tpu_torch/ops/face_integrate.py::sweep_face_plain,
 driven through integrate_warped) against the JAX package's interpret-mode
 `integrate_warped` at 128^3: int16 TSDF, int16 weight and int32 colour
-equal, for explicit faces and for "auto".
+equal, for explicit faces and for "auto"; and K3's per-plane footprint
+(`plane_footprint`) against the voxels the plain version updates.
 
 Every case starts from a random prior volume (seeded numpy), so the update
 math runs on old values and saturated weights, not only on an empty grid.
@@ -164,13 +165,62 @@ def test_sweep_counts_the_voxels_it_changes():
     vol.color.fill_(1 << 30)
     on = torch.tensor(True)
     A, c_p = tfi.face_geometry(_vol2cam(T), frame, PARAMS.volume_dims, PARAMS.voxel_size)
+    face_prm = tfi.face_params(A, INTR, on, SPEC)
     rk, ck = tfi.build_face(torch.as_tensor(depth_m), tfi.pack_rgb(torch.as_tensor(color)),
-                            tfi.face_params(A, INTR, on, SPEC), SPEC)
+                            face_prm, SPEC)
     prm = tfi.sweep_params(c_p, tfi.primed_voxel_size(frame, PARAMS.voxel_size), SPEC, PARAMS,
-                           rk.max().float(), on)
+                           rk.max().float(), on, face_prm, INTR)
     dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
     n_upd, n_col = tfi.sweep_face_plain(vol, frame, rk, ck, prm,
                                         tfi.plane_table(SPEC, prm, dims_p))
     assert int(n_upd) == int((vol.weight != 0).sum()) > 10_000
     assert int(n_col) == int((vol.color != 1 << 30).sum()) > 1_000
     assert int(n_col) < int(n_upd)
+
+
+#: the footprint test's cases: the module's, with "auto" as every face, and
+#: all six faces of test_face_ownership_exclusive's pose
+FOOTPRINT_CASES = tuple((n, T, ALL_FACES if f == "auto" else f) for n, T, f in CASES) + (
+    ("ownership", _pose(45.0, -35.0), ALL_FACES),)
+#: the most of the admitted planes' voxels that the footprints may cover: the
+#: rectangles follow the camera's frustum where each corner ray of the image
+#: is in front of the face, else the face's 45-degree ownership cone
+#: (0.17-0.49 on these cases)
+FOOTPRINT_SHARE = 0.5
+
+
+@pytest.mark.parametrize("case", FOOTPRINT_CASES, ids=[c[0] for c in FOOTPRINT_CASES])
+def test_plane_footprint_covers_every_update(case):
+    """K3 visits only the voxels inside each plane's footprint rectangle, so
+    every voxel the plain sweep updates must lie inside the rectangle of its
+    primed plane; a plane the gate shuts has an empty one, and the
+    rectangles leave out a good share of the admitted planes' voxels."""
+    _, T, faces = case
+    depth_m, color = _frame(T)
+    col_packed = tfi.pack_rgb(torch.as_tensor(color))
+    on = torch.tensor(True)
+    covered = admitted = 0
+    for frame in face_frames():
+        if frame.name not in faces:
+            continue
+        vol = create_volume(PARAMS.volume_dims, device="cpu")
+        A, c_p = tfi.face_geometry(_vol2cam(T), frame, PARAMS.volume_dims, PARAMS.voxel_size)
+        face_prm = tfi.face_params(A, INTR, on, SPEC)
+        rk, ck = tfi.build_face(torch.as_tensor(depth_m), col_packed, face_prm, SPEC)
+        prm = tfi.sweep_params(c_p, tfi.primed_voxel_size(frame, PARAMS.voxel_size), SPEC,
+                               PARAMS, rk.max().float(), on, face_prm, INTR)
+        dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
+        table = tfi.plane_table(SPEC, prm, dims_p)
+        n_upd, _ = tfi.sweep_face_plain(vol, frame, rk, ck, prm, table)
+        fp = tfi.plane_footprint(table, prm, dims_p)
+        upd = tfi.prime(vol.weight, frame) != 0
+        assert int(upd.sum()) == int(n_upd)
+        z, y, x = torch.nonzero(upd, as_tuple=True)
+        inside = ((fp[z, 0] <= x) & (x <= fp[z, 1]) & (fp[z, 2] <= y) & (y <= fp[z, 3]))
+        assert bool(inside.all()), (frame.name, int((~inside).sum()))
+        shut = table[:, -1] == 0
+        assert (fp[shut] == torch.tensor([0, -1, 0, -1])).all(), frame.name
+        covered += int(tfi.footprint_voxels(fp))
+        admitted += int((~shut).sum()) * dims_p[1] * dims_p[2]
+    assert covered <= FOOTPRINT_SHARE * admitted, (covered, admitted)
+    assert admitted > 0

@@ -8,7 +8,9 @@ face):
     back events that differ only in where an outward exit is recorded;
   - `face_fields` against `_face_fields` on the same events;
   - K5 `resample_face_plain` against the interpret-mode `_resample_face`
-    on the same face fields: equal.
+    on the same face fields: equal;
+  - K4's per-ray plane interval (`ray_plane_interval`) against the full
+    march: restricting the march to it changes no bit.
 
 Each stage gets the JAX stage's inputs, so a difference is that stage's
 own. The JAX side runs without FMA contraction (tests/torch_jaxref.py)."""
@@ -21,9 +23,11 @@ import torch_jaxref
 from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose, inverse, rodrigues
+from kinfu_tpu_torch.numerics import rint_index
 from kinfu_tpu_torch.ops import face_raycast as tfr
 from kinfu_tpu_torch.ops.face_integrate import faces_needed, prime, unprime
 from kinfu_tpu_torch.ops.facewarp import face_frames, face_params
+from kinfu_tpu_torch.volume.tsdf import SHORTMAX
 
 torch.set_num_threads(2)
 
@@ -181,3 +185,128 @@ def test_sweep_work_counts_what_the_march_reads(faces):
         assert torch.equal(hit, hit2) and torch.equal(back, back2), tag
     prm = tfr.ray_params(torch.as_tensor(it["org_p"]), it["vs_p"], SPEC, torch.tensor(False))
     assert [int(c) for c in tfr.sweep_rays_work(tsdf, it["frame"], prm, SPEC)] == [0, 0]
+
+
+def _march_in(tsdf, frame, prm, z_first, z_last):
+    """`_march` with each ray restricted to its planes [z_first, z_last]:
+    (hit_t, back_t, first and last plane where a live ray samples a voxel
+    or an exit fires; Zp and -1 where none)."""
+    t_p = prime(tsdf, frame)
+    Zp, Yp, Xp = t_p.shape
+    F = SPEC.size
+    ox, oy, oz, vsx, vsy, vsz = prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]
+    f, c, t_cover, own_tan, gate = prm[6], prm[7], prm[8], prm[9], prm[10]
+    inv_vsx = 1.0 / vsx
+    inv_vsy = 1.0 / vsy
+    pix = torch.arange(F, dtype=torch.float32)
+    dy = ((pix - c) * (1.0 / f))[:, None]
+    dx = ((pix - c) * (1.0 / f))[None, :]
+    ht = torch.full((F, F), 1e30)
+    bt = torch.full((F, F), 1e30)
+    fp = torch.full((F, F), float("nan"))
+    nan = torch.tensor(float("nan"))
+    first = torch.full((F, F), Zp)
+    last = torch.full((F, F), -1)
+    alive = tfr._own_mask(SPEC, own_tan, "cpu") & (gate != 0)
+    flat = t_p.reshape(-1)
+    for zg in range(Zp):
+        t_m = float(zg) * vsz - oz
+        t_ok = (t_m > 1e-6) & (t_m <= t_cover)
+        ts = torch.clamp(t_m, min=1e-6)
+        yi = rint_index((oy + dy * ts) * inv_vsy)
+        xi = rint_index((ox + dx * ts) * inv_vsx)
+        lin = (zg * Yp + yi.clamp(0, Yp - 1)) * Xp + xi.clamp(0, Xp - 1)
+        f_new = flat[lin].float() * (1.0 / SHORTMAX)
+        valid = t_ok & (1 <= zg < Zp - 1) & (yi >= 1) & (yi < Yp - 1) & (xi >= 1) & (xi < Xp - 1)
+        live = alive & (ht >= 1e30) & (bt >= 1e30) & (z_first <= zg) & (zg <= z_last)
+        front = live & valid & (fp > 0.0) & (f_new < 0.0)
+        back = live & valid & (fp < 0.0) & (f_new > 0.0)
+        denom = fp - f_new
+        frac = fp / torch.where(denom.abs() < 1e-30, torch.full_like(denom, 1e-30), denom)
+        ht = torch.where(front, t_m - vsz + vsz * frac, ht)
+        bt = torch.where(back, t_m, bt)
+        exit_out = (((xi >= Xp - 1) & (dx > 0)) | ((xi <= 0) & (dx < 0))
+                    | ((yi >= Yp - 1) & (dy > 0)) | ((yi <= 0) & (dy < 0))) & t_ok
+        bt = torch.where(live & ~front & ~back & exit_out, t_m, bt)
+        fp = torch.where(live, torch.where(valid, f_new, nan), fp)
+        used = live & (valid | exit_out)
+        first = torch.where(used & (first == Zp), zg, first)
+        last = torch.where(used, zg, last)
+    return ht, bt, first, last
+
+
+def _march_run(tsdf, frame, prm, z_first, v_last, z_last):
+    """K4's march: the valid run [z_first, v_last] sampled without bounds or
+    exit tests, then, for a ray it leaves unresolved, the exit at z_last
+    where z_last lies past the run. (hit_t, back_t)."""
+    t_p = prime(tsdf, frame)
+    Zp, Yp, Xp = t_p.shape
+    F = SPEC.size
+    ox, oy, oz, vsx, vsy, vsz = prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]
+    f, c = prm[6], prm[7]
+    pix = torch.arange(F, dtype=torch.float32)
+    dy = ((pix - c) * (1.0 / f))[:, None]
+    dx = ((pix - c) * (1.0 / f))[None, :]
+    ht = torch.full((F, F), 1e30)
+    bt = torch.full((F, F), 1e30)
+    fp = torch.full((F, F), float("nan"))
+    flat = t_p.reshape(-1)
+    for zg in range(Zp):
+        t_m = float(zg) * vsz - oz
+        ts = torch.clamp(t_m, min=1e-6)
+        yi = rint_index((oy + dy * ts) * (1.0 / vsy))
+        xi = rint_index((ox + dx * ts) * (1.0 / vsx))
+        run = (ht >= 1e30) & (bt >= 1e30) & (z_first <= zg) & (zg <= v_last)
+        lin = (zg * Yp + yi.clamp(0, Yp - 1)) * Xp + xi.clamp(0, Xp - 1)
+        f_new = flat[lin].float() * (1.0 / SHORTMAX)
+        front = run & (fp > 0.0) & (f_new < 0.0)
+        back = run & (fp < 0.0) & (f_new > 0.0)
+        denom = fp - f_new
+        frac = fp / torch.where(denom.abs() < 1e-30, torch.full_like(denom, 1e-30), denom)
+        ht = torch.where(front, t_m - vsz + vsz * frac, ht)
+        bt = torch.where(back, t_m, bt)
+        fp = torch.where(run, f_new, fp)
+    exit_t = z_last.float() * vsz - oz
+    left = (ht >= 1e30) & (bt >= 1e30) & (z_last > v_last)
+    return ht, torch.where(left, exit_t, bt)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CASES])
+def test_ray_interval_changes_nothing(faces, case):
+    """K4 marches each ray over `ray_plane_interval` only: every plane where
+    a live ray of the full march samples or exits lies inside the interval,
+    the march restricted to it gives the full march's hit and back bits, so
+    does K4's own form of it (the valid run, then the exit), and a gated-off
+    face gives empty intervals."""
+    items = [it for it in faces if it["case"] == case]
+    assert items
+    for it in items:
+        frame = it["frame"]
+        tag = f"{case} {frame.name}"
+        tsdf = torch.as_tensor(it["tsdf"])
+        dims_p = tuple(tsdf.shape[a] for a in frame.axes)
+        prm = tfr.ray_params(torch.as_tensor(it["org_p"]), it["vs_p"], SPEC, torch.tensor(True))
+        z_first, z_last, v_last = tfr.ray_plane_interval(prm, frame, dims_p, SPEC)
+        ht, bt, _ = tfr._march(tsdf, frame, prm, SPEC)
+        full = _march_in(tsdf, frame, prm, 0, dims_p[0] - 1)
+        assert torch.equal(_bits(full[0]), _bits(ht)) and torch.equal(_bits(full[1]), _bits(bt))
+        used = full[3] >= 0
+        assert bool(used.any()), tag
+        assert bool((z_first[used] <= full[2][used]).all()), tag
+        assert bool((full[3][used] <= z_last[used]).all()), tag
+        h2, b2, _, _ = _march_in(tsdf, frame, prm, z_first, z_last)
+        assert torch.equal(_bits(h2), _bits(ht)), f"{tag} hit"
+        assert torch.equal(_bits(b2), _bits(bt)), f"{tag} back"
+        h3, b3 = _march_run(tsdf, frame, prm, z_first, v_last, z_last)
+        assert torch.equal(_bits(h3), _bits(ht)), f"{tag} hit of the valid run"
+        assert torch.equal(_bits(b3), _bits(bt)), f"{tag} back of the valid run"
+        # the interval skips planes: fewer than every plane of every live ray
+        span = (z_last - z_first + 1).clamp(min=0)
+        assert int(span.sum()) < int((z_last >= 0).sum()) * dims_p[0], tag
+        off = tfr.ray_params(torch.as_tensor(it["org_p"]), it["vs_p"], SPEC, torch.tensor(False))
+        lo, hi, _ = tfr.ray_plane_interval(off, frame, dims_p, SPEC)
+        assert bool((lo > hi).all()), tag
