@@ -9,21 +9,29 @@ Phases; any failure exits non-zero before the result line:
      icp_normal_eqs on frame 3's measurement pyramid against the model maps
      of the state fused from frames 0-2 (all three levels, the identity
      increment and a small one; count exact, A and b within 1e-4 of their
-     largest entry, the same bits on a second launch); K2 build_face, K3
-     face_integrate, K4 sweep_rays and K5 resample_face on that 512^3 volume
+     largest entry, the same bits on a second launch); K1's finishing form
+     (one launch against finish_iteration on its own system, the whole ICP
+     of one host call against rigid_icp_plain, a singular system), timed
+     beside the same ICP as one-iteration launches with the eager finish;
+     K2 build_face, K3 face_integrate and K4 sweep_rays on that 512^3 volume
      and frame 3 (all six cube faces seen from the orbit pose, and each face
-     seen from the volume's centre looking along it); K3's and K4's time
-     for a gated-off call, K3's footprint voxels beside the voxels of its
-     admitted planes, and K4's count of rays whose hit or back bits differ
-     from the plain version's (no profiler before phase 4: once started in
-     a process it slows every later launch);
-  4. run the 50-frame orbit of bench.py (640x480, fx=fy=525, 512^3 over 3 m,
+     seen from the volume's centre looking along it); K5 resample_face, the
+     resample and composite of all six faces in one launch, on the orbit's
+     view and the six centre views; K3's and K4's time for a gated-off
+     call, K3's footprint voxels beside the voxels of its admitted planes,
+     and K4's count of rays whose hit or back bits differ from the plain
+     version's (no profiler before phase 4: once started in a process it
+     slows every later launch);
+  4. count the host syncs of a step (sync-debug mode "warn"), then run the
+     50-frame orbit of bench.py (640x480, fx=fy=525, 512^3 over 3 m,
      3-level pyramid, ICP (4,5,10), icp_mode="auto", which is the warped ICP
      kernel K1 on the card) through init_state + kinfu_step with the launch
-     counts set to 0 just before; every frame after the first must track,
-     the aligned ATE against exact ground truth must be <= 1 mm, K1 must
-     launch 19 times a frame and every other kernel at least once; then 10
-     frames with icp_mode="gather", which must track without launching K1;
+     counts set to 0 just before, each step under sync-debug mode "error"
+     (a host sync in the step fails the run); every frame after the first
+     must track, the aligned ATE against exact ground truth must be <= 1 mm,
+     K1 must launch 19 times a frame, K5 once, every other kernel at least
+     once; then 10 frames with icp_mode="gather", which must track without
+     launching K1;
   5. the same 50 frames through KinFuSession with its default device, numpy
      frames in, the counts set to 0 just before: every frame tracks, the
      aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
@@ -32,16 +40,19 @@ Phases; any failure exits non-zero before the result line:
   6. profile 8 steps of a fresh run: kernel time per frame, each port
      kernel's device time per frame and a launch (per frame, its longest
      launch, the active face on the orbit, and the others, gated off), and
-     the device's idle share (the full table goes to --profile-table);
+     the device's idle share (the full table goes to --profile-table); then
+     the device time and launches of the ICP of a frame alone, one host call
+     against one-iteration launches with the eager finish;
   7. print one JSON line describing the kernels, then the card, then the
      result line.
 
-Usage: python3 chip_smoke.py [--profile-table PATH]
+Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import subprocess
@@ -84,6 +95,13 @@ K4_T_TOL = 1e-4
 ATE_MAX = 1.0e-3
 #: K1 launches per ICP iteration (one kernel; its last block finishes)
 K1_PER_ITER = 1
+#: K1's finishing form: one launch against finish_iteration on its own
+#: system (the LU and the transcendentals round otherwise), and the whole
+#: ICP against rigid_icp_plain (later iterations start from poses that
+#: differ by ulps, so a rint tie may flip an inlier)
+K1_FINISH_TOL = 1e-6
+K1_ICP_TOL = 1e-5
+K1_ICP_INLIERS = 1e-3
 #: frames of the gather-ICP leg
 GATHER_FRAMES = 10
 #: the session's pose record against the step's poses
@@ -99,10 +117,11 @@ F32_FLOPS = 67e12
 #: rounded up: K1 per current pixel; K2 per face-stack pixel; K3 per voxel of
 #: a plane's footprint (projection and ownership), per voxel it updates and
 #: per voxel whose colour it mixes; K4 per ray-plane step; K5 per camera
-#: pixel
+#: pixel and gated face (the primed ray and the ownership test) and per
+#: camera pixel (its owner's resample and unprime)
 OPS = {"icp_normal_eqs": 150, "build_face": 40, "face_integrate_gate": 24,
        "face_integrate_update": 24, "face_integrate_colour": 20, "sweep_rays": 15,
-       "resample_face": 40}
+       "resample_face_own": 20, "resample_face": 40}
 
 
 def bound(nbytes: int, ops: int):
@@ -181,12 +200,12 @@ def inside_view(frame_, params):
 
 
 def check_kernels(state, frame, pose, params, intr, device):
-    """Phase 3: each kernel against its plain version on the same inputs:
-    all six faces seen from the orbit pose `pose` (the main path's view;
-    timed on its +z face), then each face seen from the volume's centre
-    looking along it, so that every face gets real work: in each of those
-    views and in the timed one, K2's image must be non-empty, K3 must update
-    voxels, K4 must hit the surface and K5 must resample a hit. Returns
+    """Phase 3: K2, K3 and K4 against their plain versions on the same
+    inputs: all six faces seen from the orbit pose `pose` (the main path's
+    view; timed on its +z face), then each face seen from the volume's
+    centre looking along it, so that every face gets real work: in each of
+    those views and in the timed one, K2's image must be non-empty, K3 must
+    update voxels and K4 must hit the surface. Returns
     {key: [max_abs_err, ms, plain_ms, bound_ms, bound_by]}, the times and
     bounds of the timed view. Prints, for the timed view, K3's and K4's
     times for a gated-off call (CUDA events: mostly the wrapper's host time;
@@ -215,7 +234,7 @@ def check_kernels(state, frame, pose, params, intr, device):
     vs = params.voxel_size
     vol = state.vol
     res = {k: [0.0, float("nan"), float("nan"), float("nan"), ""]
-           for k, *_ in KERNELS if k != "icp_normal_eqs"}
+           for k, *_ in KERNELS if k not in ("icp_normal_eqs", "resample_face")}
     k4_agree, k4_differ = [], 0
 
     views = [("orbit", pose, f) for f in fw.face_frames()]
@@ -335,28 +354,72 @@ def check_kernels(state, frame, pose, params, intr, device):
             print(f"  K4 {tag}: a gated-off call "
                   f"{ms(lambda: fr.sweep_rays(vol.tsdf, frame_, off4, rspec)):.4f} ms", flush=True)
 
-        # K5 on the shaded face fields
-        t_f, n_f, _ = fr.face_fields(hp, bp, org_p, rspec)
-        n_f = n_f.contiguous()
-        prm5 = fw.face_params(D @ cam2vol.R, intr, on, rspec)
-        tk, nk = fr.resample_face(t_f, n_f, prm5, intr)
-        tp, np_ = fr.resample_face_plain(t_f, n_f, prm5, intr)
-        sync()
-        err5 = max(float((tk - tp).abs().max()), float((nk - np_).abs().max()))
-        res["resample_face"][0] = max(res["resample_face"][0], err5)
-        if err5:
-            _fail(f"K5 {tag}: values differ from the plain version by up to {err5}")
-        if must_work and not bool(torch.isfinite(tk).any()):
-            _fail(f"K5 {tag}: no camera pixel took a face sample, so the comparison "
-                  "tested nothing")
-        if timed_here:
-            res["resample_face"][1] = ms(lambda: fr.resample_face(t_f, n_f, prm5, intr))
-            res["resample_face"][2] = ms(lambda: fr.resample_face_plain(t_f, n_f, prm5, intr))
-            res["resample_face"][3:] = bound(nbytes(t_f, n_f, prm5, tk, nk),
-                                             OPS["resample_face"] * tk.numel())
-    print(f"  K2 and K5 bit-exact, K3 int16/int32 equal on {len(views)} views; "
+    print(f"  K2 bit-exact, K3 int16/int32 equal on {len(views)} views; "
           f"K4 min mask agreement {min(k4_agree):.6f}, {k4_differ} rays with other hit or "
           f"back bits in all", flush=True)
+    return res
+
+
+def check_composite(state, pose, params, intr, device):
+    """Phase 3, K5: the one-launch resample and composite of all six faces
+    against its plain version, on the orbit's view `pose` and on the view
+    from the volume's centre along each face. The faces' fields come from
+    K4 and face_fields, gated by faces_needed as the step gates them. The
+    valid mask, the vertices and the normals must be equal (the count of
+    values whose bits differ, a signed zero, is printed), and each view must
+    have valid pixels. Times the orbit's view. Returns [max_abs_err, ms,
+    plain_ms, bound_ms, bound_by]."""
+    import torch
+
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.ops import face_integrate as fi
+    from kinfu_tpu_torch.ops import face_raycast as fr
+    from kinfu_tpu_torch.ops import facewarp as fw
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms = cuda_ms if device.type == "cuda" else (lambda fn, **k: float("nan"))
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    size, focal = params.raycast_face
+    rspec = fr.RaySpec(int(size), float(focal))
+    res = [0.0, float("nan"), float("nan"), float("nan"), ""]
+    views = [("orbit", pose)] + [(f"inside {f.name}", inside_view(f, params))
+                                 for f in fw.face_frames()]
+    for tag, T in views:
+        cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
+        cam2vol = compose(inverse(volp), cam)
+        gates = fi.faces_needed(compose(inverse(cam), volp), intr)
+        prm = fr.composite_params(cam2vol, params)
+        fields = [fr.sweep_and_shade(state.vol.tsdf, f, prm[k, 9:12], params, rspec, gates[k])
+                  for k, f in enumerate(fw.face_frames())]
+        args = ([t for t, _ in fields], [n for _, n in fields], prm, gates, intr, rspec)
+        vk, nk, okk = fr.resample_composite(*args)
+        vp, np_, okp = fr.resample_composite_plain(*args)
+        sync()
+        err = max(float((vk - vp).abs().max()), float((nk - np_).abs().max()))
+        bits = int((vk.view(torch.int32) != vp.view(torch.int32)).sum()
+                   + (nk.view(torch.int32) != np_.view(torch.int32)).sum())
+        print(f"  K5 {tag}: faces gated on {gates.int().tolist()}, {int(okk.sum())} valid pixels "
+              f"(plain {int(okp.sum())}); max |kernel - plain| {err:.3g}, {bits} values with "
+              f"other bits", flush=True)
+        res[0] = max(res[0], err)
+        if not torch.equal(okk, okp) or err:
+            _fail(f"K5 {tag}: the composite differs from the plain version")
+        if not bool(okk.any()):
+            _fail(f"K5 {tag}: no valid pixel, so the comparison tested nothing")
+        if tag == "orbit":
+            res[1] = ms(lambda: fr.resample_composite(*args))
+            res[2] = ms(lambda: fr.resample_composite_plain(*args))
+            # each face pixel an owned camera pixel samples, read once (t and
+            # normal'); vertex, normal and valid written once a camera pixel;
+            # per camera pixel the ownership test of every gated face and the
+            # resample of its owner
+            read = int(fr.resample_composite_work(prm, gates, intr, rspec.size, rspec))
+            n_on = int(gates.sum())
+            res[3:] = bound(16 * read + nbytes(prm, gates, vk, nk, okk),
+                            okk.numel() * (OPS["resample_face_own"] * n_on
+                                           + OPS["resample_face"]))
+            print(f"  K5 {tag}: reads {read} face pixels; bound {res[3]:.4f} ms ({res[4]})",
+                  flush=True)
     return res
 
 
@@ -412,20 +475,184 @@ def check_icp(state, frame, params, intr, device):
                       f"{K1_TOL} of its largest entry")
             res[0] = max(res[0], err_a, err_b)
             if level == 0 and name == "small":
+                # the one-iteration form; check_icp_finish times the
+                # finishing form, which the main path runs
                 res[1] = ms(lambda: iw.icp_normal_eqs_warped(*args))
                 res[2] = ms(lambda: iw.icp_normal_eqs_warped_plain(*args))
+                print(f"  {tag}: one-iteration form {res[1]:.4f} ms, plain {res[2]:.4f} ms",
+                      flush=True)
                 # the current maps once, the model pixels gathered once
                 gathered = int(iw.icp_normal_eqs_warped_work(inc, maps[0], maps[1], maps[2],
                                                              intr.level(level)))
                 print(f"  {tag}: gathers {gathered} distinct model pixels", flush=True)
                 res[3:] = bound(nbytes(maps[0], maps[1], A, b, n) + 24 * gathered,
                                 OPS["icp_normal_eqs"] * maps[0].shape[0] * maps[0].shape[1])
+    timed = check_icp_finish(cvs, cns, state, params, intr, device)
+    if timed is not None:
+        res[1:3] = timed
     return res
 
 
-def run_orbit(frames, params, intr, device):
-    """Phase 4: the tracked orbit through init_state + kinfu_step. Returns
-    (poses [N,4,4], oks [N], inliers [N], per-frame ms [N], final state)."""
+def check_icp_finish(cvs, cns, state, params, intr, device):
+    """Phase 3, K1's finishing form: (a) one finishing launch at level 0
+    against `finish_iteration` on the launch's own A and b, from a start
+    pose that is not the identity and from the identity (pose within
+    K1_FINISH_TOL, ok and count equal; the system bit-equal to the
+    one-iteration form's); (b) the whole coarse-to-fine ICP, one host call,
+    against `rigid_icp_plain` on the same maps (K1_ICP_TOL, ok equal,
+    inliers within K1_ICP_INLIERS), 19 launches from one call; (c) a
+    singular system (all-zero current normals): not ok, the identity.
+    Times the whole ICP of a frame beside 19 one-iteration launches with the
+    eager finish (the path before the finishing form) and the plain
+    version, and prints the frame's bound: the sum of each launch's.
+    Returns, on the card, (ms, plain ms) of one finishing launch at level 0
+    from the small increment, the form of K1 the main path launches."""
+    import torch
+
+    from kinfu_tpu_torch.geometry.se3 import Pose, rodrigues
+    from kinfu_tpu_torch.ops import icp_warped as iw
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.tracking import icp as ticp
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms = cuda_ms if device.type == "cuda" else (lambda fn, **k: float("nan"))
+    sin_t = math.sin(math.radians(params.icp_angle_threshold))
+    mv, mn = state.model_vmaps, state.model_nmaps
+    lintr = intr.level(0)
+    # the finishing form runs only on the card (its plain version is
+    # finish_iteration after the plain normal equations)
+    starts = {} if device.type != "cuda" else {"a start off the identity": Pose(
+                  rodrigues(torch.tensor([0.002, -0.004, 0.001], device=device)),
+                  torch.tensor([0.004, -0.002, 0.003], device=device)),
+              "the identity": Pose(torch.eye(3, device=device), torch.zeros(3, device=device))}
+    on = torch.ones((), dtype=torch.bool, device=device)
+    for name, start in starts.items():
+        system = (torch.empty((6, 6), device=device), torch.empty(6, device=device),
+                  torch.empty((), dtype=torch.int32, device=device))
+        st = iw.icp_solve_warped([(cvs[0], cns[0], mv[0], mn[0], lintr, 1)],
+                                 params.icp_dist_threshold, sin_t,
+                                 start=iw.state_block(start, on), system=system)
+        pose_k, ok_k, n_k = iw.unpack_state(st)
+        pose_p, ok_p, n_p = ticp.finish_iteration(*system, start, on)
+        A1, b1, n1 = iw.icp_normal_eqs_warped(start, cvs[0], cns[0], mv[0], mn[0], lintr,
+                                              params.icp_dist_threshold, sin_t)
+        sync()
+        dR = float((pose_k.R - pose_p.R).abs().max())
+        dt = float((pose_k.t - pose_p.t).abs().max())
+        same_sys = (torch.equal(system[0], A1) and torch.equal(system[1], b1)
+                    and torch.equal(system[2], n1))
+        print(f"  K1 finishing launch, level 0, {name}: |dR| {dR:.3g}, |dt| {dt:.3g} m against "
+              f"finish_iteration; ok {bool(ok_k)} (plain {bool(ok_p)}); {int(n_k)} inliers "
+              f"(plain {int(n_p)}); its system equals the one-iteration form's: {same_sys}",
+              flush=True)
+        if max(dR, dt) > K1_FINISH_TOL or bool(ok_k) != bool(ok_p) or int(n_k) != int(n_p) \
+                or not same_sys or not bool(ok_k):
+            _fail(f"K1 finishing launch from {name} differs from finish_iteration")
+    timed = None
+    if starts:
+        start = starts["a start off the identity"]
+        block = iw.state_block(start, on)
+        one = [(cvs[0], cns[0], mv[0], mn[0], lintr, 1)]
+        timed = (ms(lambda: iw.icp_solve_warped(one, params.icp_dist_threshold, sin_t,
+                                                start=block)),
+                 ms(lambda: ticp.finish_iteration(*iw.icp_normal_eqs_warped_plain(
+                     start, cvs[0], cns[0], mv[0], mn[0], lintr, params.icp_dist_threshold,
+                     sin_t), start, on)))
+        print(f"  K1 finishing launch, level 0: {timed[0]:.4f} ms, plain (normal equations and "
+              f"finish_iteration) {timed[1]:.4f} ms", flush=True)
+
+    args = (cvs, cns, mv, mn, intr, params)
+    kernels.reset_launch_counts()
+    res = ticp.rigid_icp(*args)
+    sync()
+    launches = kernels.LAUNCHES["icp_normal_eqs"]
+    plain = ticp.rigid_icp_plain(*args)
+    sync()
+    dR = float((res.pose.R - plain.pose.R).abs().max())
+    dt = float((res.pose.t - plain.pose.t).abs().max())
+    n_k, n_p = int(res.num_inliers), int(plain.num_inliers)
+    iters = sum(params.icp_iters)
+    print(f"  K1 whole ICP (one host call, {launches} launches): |dR| {dR:.3g}, |dt| {dt:.3g} m "
+          f"against rigid_icp_plain; ok {bool(res.ok)} (plain {bool(plain.ok)}); {n_k} inliers "
+          f"(plain {n_p}); |t| of the increment {float(plain.pose.t.norm()):.4g} m", flush=True)
+    if max(dR, dt) > K1_ICP_TOL or bool(res.ok) != bool(plain.ok) or not bool(res.ok) \
+            or abs(n_k - n_p) > K1_ICP_INLIERS * n_p \
+            or launches != (iters * K1_PER_ITER if device.type == "cuda" else 0):
+        _fail("K1's whole ICP differs from rigid_icp_plain, or did not launch once an iteration")
+
+    zero = [torch.zeros_like(c) for c in cns]
+    sing = ticp.rigid_icp(cvs, zero, mv, mn, intr, params)
+    sync()
+    ident = torch.equal(sing.pose.R, torch.eye(3, device=device)) and not bool(sing.pose.t.any())
+    print(f"  K1 singular system (all-zero current normals): ok {bool(sing.ok)}, identity pose "
+          f"{ident}, {int(sing.num_inliers)} inliers", flush=True)
+    if bool(sing.ok) or not ident or int(sing.num_inliers) != 0:
+        _fail("K1 on a singular system: tracking did not fail, or the pose moved")
+
+    ms_k = ms(lambda: ticp.rigid_icp(*args))
+    ms_eager = ms(lambda: ticp.icp_loop(*args, iw.icp_normal_eqs_warped))
+    ms_plain = ms(lambda: ticp.rigid_icp_plain(*args), reps=5, warmup=1)
+    # each launch: its current maps once, the model pixels it gathers once,
+    # its system written; counted at the running pose of every iteration
+    work = {"bytes": 0, "ops": 0}
+
+    def counted(inc, cv, cn, pv, pn, li, dist, sin):
+        out = iw.icp_normal_eqs_warped_plain(inc, cv, cn, pv, pn, li, dist, sin)
+        work["bytes"] += (nbytes(cv, cn, *out) + iw.STATE_SIZE * 4
+                          + 24 * int(iw.icp_normal_eqs_warped_work(inc, cv, cn, pv, li)))
+        work["ops"] += OPS["icp_normal_eqs"] * cv.shape[0] * cv.shape[1]
+        return out
+
+    ticp.icp_loop(*args, counted)
+    b_ms, b_by = bound(work["bytes"], work["ops"])
+    print(f"  K1 whole ICP of a frame: {ms_k:.4f} ms in one call, {ms_eager:.4f} ms as {iters} "
+          f"one-iteration launches with the eager finish, plain {ms_plain:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}, {work['bytes']} bytes over {iters} launches)", flush=True)
+    return timed
+
+
+def count_syncs(frames, params, intr, device) -> float:
+    """Host synchronisations a step makes, per frame: kinfu_step over
+    `frames` from a fresh state under torch.cuda's sync-debug mode "warn",
+    counting its warnings (after two frames that build the step's constant
+    caches). The mode sees the synchronising CUDA calls PyTorch makes
+    (copies between host and device, reads of a device value); PyTorch
+    calls it a prototype that may miss some."""
+    import warnings
+
+    import torch
+
+    from kinfu_tpu_torch.pipeline.kinfu import init_state, kinfu_step
+
+    dev = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
+           for d, c in frames]
+    state = init_state(params, intr, device=device)
+    for d, c in dev[:2]:
+        state, _ = kinfu_step(state, d, c, params, intr)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for d, c in dev[2:]:
+                state, _ = kinfu_step(state, d, c, params, intr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                if "called a synchronizing CUDA operation" in str(w.message))
+    if where:
+        print(f"    host syncs in {len(dev) - 2} steps, by the line that made them: "
+              f"{dict(where)}", flush=True)
+    return sum(where.values()) / (len(dev) - 2)
+
+
+def run_orbit(frames, params, intr, device, no_sync: bool = False):
+    """Phase 4: the tracked orbit through init_state + kinfu_step. With
+    `no_sync`, each step runs under torch.cuda's sync-debug mode "error":
+    any operation in it that synchronises the host with the device fails
+    the run, naming the operation. Returns (poses [N,4,4], oks [N],
+    inliers [N], per-frame ms [N], final state, launches)."""
     import torch
 
     from kinfu_tpu_torch.ops import kernels
@@ -439,12 +666,19 @@ def run_orbit(frames, params, intr, device):
         torch.cuda.synchronize()
     kernels.reset_launch_counts()
     outs, events = [], []
-    for d, c in dev_frames:
+    for k, (d, c) in enumerate(dev_frames):
         if device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            state, out = step(state, d, c)
+            if no_sync:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, out = step(state, d, c)
+            except RuntimeError as e:
+                _fail(f"frame {k}: the step synchronised the host with the device: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             b.record()
             events.append((a, b))
         else:
@@ -597,6 +831,44 @@ def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     Path(out_path).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=80, max_name_column_width=90))
+    profile_icp(state, dev[-1][0], params, intr, device)
+
+
+def profile_icp(state, depth, params, intr, device, n: int = 8) -> None:
+    """Phase 6, the ICP of a frame alone: device time and launches a call of
+    rigid_icp (K1's finishing form, one host call) and of the same ICP as
+    one-iteration K1 launches with the eager finish, each over `n` calls on
+    the measurement pyramid of `depth` against the model maps of `state`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid
+    from kinfu_tpu_torch.ops import icp_warped as iw
+    from kinfu_tpu_torch.tracking import icp as ticp
+
+    p = params
+    _, cvs, cns = build_measurement_pyramid(
+        depth, intr, pyramid_height=p.pyramid_height,
+        bfilter_kernel_size=p.bfilter_kernel_size, bfilter_color_sigma=p.bfilter_color_sigma,
+        bfilter_spatial_sigma=p.bfilter_spatial_sigma, depth_scale=p.depth_scale,
+        max_dist=p.dfilter_dist, normal_disc_threshold=p.normal_disc_threshold)
+    args = (cvs, cns, state.model_vmaps, state.model_nmaps, intr, params)
+    for name, fn in (("rigid_icp, one host call", lambda: ticp.rigid_icp(*args)),
+                     ("one-iteration K1 launches with the eager finish",
+                      lambda: ticp.icp_loop(*args, iw.icp_normal_eqs_warped))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in ev) / 1e3 / n
+        launches = sum(e.count for e in ev) / n
+        print(f"    ICP of a frame, {name}: device {busy:.4f} ms in {launches:.0f} launches",
+              flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -610,6 +882,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-table", metavar="PATH", default=str(PROFILE_TABLE),
                     help="where to write the full profiler table (default: %(default)s)")
+    ap.add_argument("--count-syncs", action="store_true",
+                    help="only count the host syncs of a step (frames 2-5 of the orbit, "
+                         "under sync-debug mode \"warn\") and exit, printing no result")
     args = ap.parse_args()
 
     import torch
@@ -639,6 +914,11 @@ def main() -> None:
           f"in {t_build:.1f} s", flush=True)
 
     params, intr = configure()
+    if args.count_syncs:
+        frames, _ = orbit_frames(6, intr)
+        print(f"host syncs a step: {count_syncs(frames, params, intr, device):g} "
+              f"(frames 2-5 of the orbit)", flush=True)
+        return
     n = ORBIT_FRAMES
     t0 = time.perf_counter()
     # one frame more than the orbit: the session resumes from its checkpoint on it
@@ -658,6 +938,7 @@ def main() -> None:
           "frames 0-2):", flush=True)
     res = {"icp_normal_eqs": check_icp(state, frames[3], params, intr, device)}
     res.update(check_kernels(state, frames[3], gt[3], params, intr, device))
+    res["resample_face"] = check_composite(state, gt[3], params, intr, device)
     for key, name, *_ in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by = res[key]
         print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -665,9 +946,12 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
 
+    syncs = count_syncs(frames[:6], params, intr, device)
     print(f"[4] orbit: {n} frames through init_state + kinfu_step, icp_mode="
-          f"{params.icp_mode!r}", flush=True)
-    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames[:n], params, intr, device)
+          f"{params.icp_mode!r}, each step under sync-debug mode \"error\"; host syncs a "
+          f"step: {syncs:g} (counted over 4 steps under \"warn\")", flush=True)
+    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames[:n], params, intr, device,
+                                                               no_sync=True)
     for i in range(0, n, 10):
         print(f"    frame {i:2d}: ok={bool(oks[i])} inliers={int(inliers[i])} "
               f"{frame_ms[i]:.2f} ms", flush=True)
@@ -696,7 +980,8 @@ def main() -> None:
           f"{gap * 1e3:.4f} mm (printed, not gated)", flush=True)
     print(f"    {ms_frame:.3f} ms/frame (median of frames 2-{n - 1}, CUDA events) "
           f"on {smi}", flush=True)
-    print(f"    launches in the orbit: {launches}", flush=True)
+    print(f"    launches in the orbit: {launches}; a frame: "
+          f"{ {k: v / n for k, v in sorted(launches.items())} }", flush=True)
     if ate > ATE_MAX:
         _fail(f"aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
     for key, name, *_ in KERNELS:
@@ -705,6 +990,10 @@ def main() -> None:
     if launches["icp_normal_eqs"] != k1_want:
         _fail(f"K1 launched {launches['icp_normal_eqs']} times in the orbit, not "
               f"{sum(params.icp_iters)} iterations x {n} frames x {K1_PER_ITER} = {k1_want}")
+    if launches["resample_face"] != n:
+        _fail(f"K5 launched {launches['resample_face']} times in the orbit, not once a frame")
+    if syncs:
+        _fail(f"the step synchronised the host {syncs:g} times a frame")
 
     gather = params.replace(icp_mode="gather")
     g_poses, g_oks, _, g_ms, g_state, g_launches = run_orbit(frames[:GATHER_FRAMES], gather,

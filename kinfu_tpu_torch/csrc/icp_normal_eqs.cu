@@ -32,12 +32,33 @@
 // Current maps may be a row shard (hc rows of the image, hc <= h): bounds
 // and the gather use the model maps' h x w.
 //
+// Two forms of the one kernel body, chosen at compile time:
+//   - the one-iteration form (kinfu_icp_normal_eqs) writes A, b and the
+//     count, and nothing else: the row-shard form of a sharded step sums A
+//     and b across shards before the solve;
+//   - the finishing form also finishes the iteration in the last block, as
+//     tracking/icp.py::finish_iteration does (kinfu_tpu/tracking/icp.py:
+//     188-199): det by an LU with partial pivoting in f32 (LAPACK's
+//     unblocked getf2: the first maximal pivot, the column scaled by the
+//     pivot's reciprocal), good = |det| >= 1e-15 and det not NaN, the 6x6
+//     solve with that LU (getrs: row swaps, unit-lower forward solve, upper
+//     back solve), x = 0 where not good, Rodrigues with its series branch
+//     (geometry/se3.py), compose, and the select of the pose and `ok` by
+//     keep = ok & good. It reads the running pose and ok from a state block
+//     f32[16] (R row-major 9, t 3, ok 1.0/0.0, the inlier count's int32
+//     bits, 2 spare; none = the identity and ok) and writes the new ones and
+//     the count to a state block; the next launch in stream order reads
+//     what this one wrote. kinfu_icp_solve launches it for every iteration
+//     of a coarse-to-fine ICP, with no host work between launches.
+//
 // Bound on this card: memory. Each pixel reads 24 bytes of current maps and
 // gathers 24 bytes of model maps, 48 B/pixel: 14.7 MB at 640x480, 4.4 us at
 // 3.35 TB/s (1.1 us at 320x240, 0.28 us at 160x120), ~26 us for the
 // (4, 5, 10) iterations of a frame. Its ~150 flops a pixel are far under
 // the float32 rate. At these sizes launch latency, not bandwidth, sets its
-// time.
+// time, and the finish (a few hundred flops in one thread) adds little.
+#include <cfloat>
+
 #include <cuda_runtime.h>
 
 #include "gather2d.cuh"
@@ -80,8 +101,153 @@ __device__ __forceinline__ void block_reduce(float (&g)[kTerms], int n, float* s
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-icp_normal_eqs_kernel(const float* __restrict__ R, const float* __restrict__ T,
+// The finish of one Gauss-Newton iteration, in one thread: from the
+// iteration's terms (A's upper triangle and b, in the order of `res`), its
+// count and its start pose (r, t, ok_in), the state block `out`.
+__device__ void finish_iteration(const float* res, int count, const float (&r)[9],
+                                 const float (&t)[3], bool ok_in, float* out) {
+  float a[6][6], x[6];
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int c = i; c < 7; ++c, ++k) {
+      if (c < 6) {
+        a[i][c] = res[k];
+        a[c][i] = res[k];
+      } else {
+        x[i] = res[k];
+      }
+    }
+  }
+  // getf2: LU with partial pivoting, in place. Every loop is unrolled and
+  // every row swap is a select on a compile-time index, so the arrays stay
+  // in registers.
+  int piv[6];
+  bool odd = false;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    int p = j;
+    float amax = fabsf(a[j][j]), pval = a[j][j];
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) {
+      if (fabsf(a[i][j]) > amax) {
+        amax = fabsf(a[i][j]);
+        pval = a[i][j];
+        p = i;
+      }
+    }
+    piv[j] = p;
+    if (pval != 0.0f) {
+      if (p != j) {
+#pragma unroll
+        for (int i = j + 1; i < 6; ++i) {
+          if (i == p) {
+#pragma unroll
+            for (int c = 0; c < 6; ++c) {
+              const float s = a[j][c];
+              a[j][c] = a[i][c];
+              a[i][c] = s;
+            }
+          }
+        }
+        odd = !odd;
+      }
+      if (fabsf(a[j][j]) >= FLT_MIN) {
+        const float rcp = 1.0f / a[j][j];
+#pragma unroll
+        for (int i = j + 1; i < 6; ++i) a[i][j] *= rcp;
+      } else {
+#pragma unroll
+        for (int i = j + 1; i < 6; ++i) a[i][j] /= a[j][j];
+      }
+    }
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) {
+#pragma unroll
+      for (int c = j + 1; c < 6; ++c) a[i][c] -= a[i][j] * a[j][c];
+    }
+  }
+  float det = a[0][0];
+#pragma unroll
+  for (int j = 1; j < 6; ++j) det *= a[j][j];
+  if (odd) det = -det;
+  const bool good = fabsf(det) >= 1e-15f && !isnan(det);
+
+  // getrs with the same LU: row swaps, L (unit) forward, U back
+  if (good) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+#pragma unroll
+      for (int i = j + 1; i < 6; ++i) {
+        if (i == piv[j]) {
+          const float s = x[j];
+          x[j] = x[i];
+          x[i] = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (x[j] != 0.0f) {
+#pragma unroll
+        for (int i = j + 1; i < 6; ++i) x[i] -= x[j] * a[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 5; j >= 0; --j) {
+      if (x[j] != 0.0f) {
+        x[j] /= a[j][j];
+#pragma unroll
+        for (int i = 0; i < j; ++i) x[i] -= x[j] * a[i][j];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) x[j] = 0.0f;
+  }
+
+  // Rodrigues(x[0:3]) with the series forms near 0 (geometry/se3.py)
+  const float wx = x[0], wy = x[1], wz = x[2];
+  const float theta2 = wx * wx + wy * wy + wz * wz;
+  const float theta = sqrtf(theta2);
+  const bool small = theta2 < 1e-12f;
+  const float sa = small ? 1.0f - theta2 * (1.0f / 6.0f) : sinf(theta) / theta;
+  const float sb = small ? 0.5f - theta2 * (1.0f / 24.0f) : (1.0f - cosf(theta)) / theta2;
+  const float K[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
+  float inc[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float kk = K[i][0] * K[0][j] + K[i][1] * K[1][j] + K[i][2] * K[2][j];
+      inc[i][j] = ((i == j ? 1.0f : 0.0f) + sa * K[i][j]) + sb * kk;
+    }
+  }
+  // compose(pose, (inc, x[3:6])) and the select by keep
+  const bool keep = ok_in && good;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float nr = r[i * 3] * inc[0][j] + r[i * 3 + 1] * inc[1][j] + r[i * 3 + 2] * inc[2][j];
+      out[i * 3 + j] = keep ? nr : r[i * 3 + j];
+    }
+    const float nt = (r[i * 3] * x[3] + r[i * 3 + 1] * x[4] + r[i * 3 + 2] * x[5]) + t[i];
+    out[9 + i] = keep ? nt : t[i];
+  }
+  out[12] = keep ? 1.0f : 0.0f;
+  reinterpret_cast<int*>(out)[13] = count;
+}
+
+// R, T: the iteration's start pose (R row-major); in the finishing form
+// they may be null (the identity), `ok_in` is the start's ok (null: true)
+// and `out` the state block the finish writes. At least 4 blocks a SM (64
+// registers a thread): the 528 blocks of a 640x480 launch then run in one
+// wave, and the finish's registers do not cost the pixel loop occupancy.
+template <bool kFinish>
+__global__ void __launch_bounds__(kMaxThreads, 4)
+icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float* out,
                       const float* __restrict__ cv, const float* __restrict__ cn,
                       const float* __restrict__ pv, const float* __restrict__ pn,
                       float* partial_g, int* partial_n, unsigned int* ticket,
@@ -94,10 +260,12 @@ icp_normal_eqs_kernel(const float* __restrict__ R, const float* __restrict__ T,
   __shared__ int res_n;
   __shared__ bool last;
 
-  float r[9];
+  float r[9], tt[3];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) r[k] = R[k];
-  const float t0 = T[0], t1 = T[1], t2 = T[2];
+  for (int k = 0; k < 9; ++k) r[k] = R != nullptr ? R[k] : (k % 4 == 0 ? 1.0f : 0.0f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) tt[k] = T != nullptr ? T[k] : 0.0f;
+  const float t0 = tt[0], t1 = tt[1], t2 = tt[2];
 
   float g[kTerms];
 #pragma unroll
@@ -189,7 +357,13 @@ icp_normal_eqs_kernel(const float* __restrict__ R, const float* __restrict__ T,
   if (threadIdx.x == 0) {
     *ninl = res_n;
     *ticket = 0u;
+    if (kFinish) finish_iteration(res, res_n, r, tt, ok_in == nullptr || *ok_in != 0.0f, out);
   }
+}
+
+int blocks_for(int hc, int w, int threads, int max_blocks) {
+  const long long want = (static_cast<long long>(hc) * w + threads - 1) / threads;
+  return static_cast<int>(want < 1 ? 1 : (want > max_blocks ? max_blocks : want));
 }
 
 }  // namespace
@@ -203,12 +377,52 @@ extern "C" int kinfu_icp_normal_eqs(const void* R, const void* T, const void* cv
   if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads || nblocks < 1) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  icp_normal_eqs_kernel<<<nblocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(R), static_cast<const float*>(T),
+  icp_normal_eqs_kernel<false><<<nblocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(R), static_cast<const float*>(T), nullptr, nullptr,
       static_cast<const float*>(cv), static_cast<const float*>(cn),
       static_cast<const float*>(pv), static_cast<const float*>(pn),
       static_cast<float*>(partial_g), static_cast<int*>(partial_n),
       static_cast<unsigned int*>(ticket), static_cast<float*>(A), static_cast<float*>(b),
       static_cast<int*>(ninl), fx, fy, cx, cy, dist2, sin2, hc, h, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole coarse-to-fine ICP of a frame: for each level in the order
+// given (coarsest first), iters[l] launches of the finishing form, each
+// reading the state the one before wrote. Level l's current and model maps
+// are maps[4l .. 4l+3] (cur vertex, cur normal, model vertex, model
+// normal), its intrinsics intr[4l .. 4l+3] (fx, fy, cx, cy), its sizes
+// dims[3l .. 3l+2] (current rows, model rows, width). The first launch
+// starts from `start` (a state block; null: the identity and ok), every
+// launch writes `state`; A, b and ninl hold the last iteration's system.
+extern "C" int kinfu_icp_solve(int nlevels, const void* maps, const void* intr,
+                               const void* dims, const void* iters, const void* start,
+                               void* state, void* partial_g, void* partial_n, void* ticket,
+                               void* A, void* b, void* ninl, float dist2, float sin2,
+                               int max_blocks, int threads, void* stream) {
+  if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads || max_blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const float* const* m = static_cast<const float* const*>(maps);
+  const float* in = static_cast<const float*>(intr);
+  const int* d = static_cast<const int*>(dims);
+  const int* it = static_cast<const int*>(iters);
+  const float* src = static_cast<const float*>(start);
+  float* st = static_cast<float*>(state);
+  for (int l = 0; l < nlevels; ++l) {
+    const int hc = d[3 * l], h = d[3 * l + 1], w = d[3 * l + 2];
+    const int nblocks = blocks_for(hc, w, threads, max_blocks);
+    for (int i = 0; i < it[l]; ++i) {
+      icp_normal_eqs_kernel<true><<<nblocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          src, src != nullptr ? src + 9 : nullptr, src != nullptr ? src + 12 : nullptr, st,
+          m[4 * l], m[4 * l + 1], m[4 * l + 2], m[4 * l + 3], static_cast<float*>(partial_g),
+          static_cast<int*>(partial_n), static_cast<unsigned int*>(ticket),
+          static_cast<float*>(A), static_cast<float*>(b), static_cast<int*>(ninl),
+          in[4 * l], in[4 * l + 1], in[4 * l + 2], in[4 * l + 3], dist2, sin2, hc, h, w);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      src = st;
+    }
+  }
+  return static_cast<int>(cudaSuccess);
 }

@@ -7,10 +7,12 @@ translation is tvec directly (not the SE(3) exponential map).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
+from kinfu_tpu_torch.device import constant
 from kinfu_tpu_torch.numerics import recip
 
 
@@ -32,11 +34,15 @@ def pose_from_matrix(T: torch.Tensor) -> Pose:
     return Pose(T[..., :3, :3], T[..., :3, 3])
 
 
+@functools.lru_cache(maxsize=None)
+def _bottom_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return constant([0.0, 0.0, 0.0, 1.0], dtype, device)
+
+
 def pose_matrix(p: Pose) -> torch.Tensor:
     """4x4 homogeneous matrix."""
     R, t = p
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(R.shape[:-2] + (1, 4))
+    bottom = _bottom_row(R.dtype, R.device).expand(R.shape[:-2] + (1, 4))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

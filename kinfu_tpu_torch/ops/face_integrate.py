@@ -30,12 +30,14 @@ Differences of form from the TPU kernel, none of result:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from kinfu_tpu_torch.config import KinFuParams
+from kinfu_tpu_torch.device import constant
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.numerics import recip, sqrt32
@@ -65,6 +67,14 @@ _FACE_MARGIN = 0.75
 TABLE_COLS = ("dz", "dzs", "au", "bu", "av", "bv", "row_off", "width", "slab_do")
 
 
+@functools.lru_cache(maxsize=None)
+def _mip_tables(spec: FaceSpec, device):
+    """Per mip level: (1 / 2^l f32, row offset i64, width i64) on `device`."""
+    return (constant([1.0 / (1 << l) for l in range(spec.levels)], torch.float32, device),
+            constant(spec.row_offsets, torch.int64, device),
+            constant([spec.size >> l for l in range(spec.levels)], torch.int64, device))
+
+
 def _mip_scalars(spec: FaceSpec, slope: torch.Tensor):
     """(inv_scale, row_off, width, cover_ok) per plane from the full-res
     slope (pallas_integrate.py:93-118): level L = smallest with
@@ -72,11 +82,8 @@ def _mip_scalars(spec: FaceSpec, slope: torch.Tensor):
     lvl = torch.zeros_like(slope, dtype=torch.int64)
     for l in range(1, spec.levels):
         lvl = lvl + (slope > _S_MAX * (1 << (l - 1))).long()
-    inv_scale = torch.tensor([1.0 / (1 << l) for l in range(spec.levels)],
-                             dtype=torch.float32, device=slope.device)[lvl]
-    row_off = torch.tensor(spec.row_offsets, device=slope.device)[lvl]
-    width = torch.tensor([spec.size >> l for l in range(spec.levels)],
-                         device=slope.device)[lvl]
+    inv_scales, row_offs, widths = _mip_tables(spec, slope.device)
+    inv_scale, row_off, width = inv_scales[lvl], row_offs[lvl], widths[lvl]
     cover_ok = slope * inv_scale <= _S_COVER
     return inv_scale, row_off, width, cover_ok
 
@@ -108,8 +115,8 @@ def slab_geometry(spec: FaceSpec, prm: torch.Tensor, n_planes: int,
     bv = (-focal * cy / dzs + centre) * inv_scale
 
     y_lo_f = torch.zeros((), dtype=f32, device=prm.device)
-    y_hi_f = torch.tensor(float(y_dim - 1), dtype=f32, device=prm.device)
-    x_hi_f = torch.tensor(float(x_dim - 1), dtype=f32, device=prm.device)
+    y_hi_f = torch.full((), float(y_dim - 1), dtype=f32, device=prm.device)
+    x_hi_f = torch.full((), float(x_dim - 1), dtype=f32, device=prm.device)
     dx_min_f = _min_abs(-cx, x_hi_f * vsx - cx)
     dy_min_f = _min_abs(y_lo_f * vsy - cy, y_hi_f * vsy - cy)
     u_hi_f = au * x_hi_f + bu
@@ -214,14 +221,20 @@ def sweep_params(c_primed: torch.Tensor, vs_p, spec: FaceSpec,
     the camera image's width and height, 2 spare, then K2's parameter block
     `face_prm` (16), from which K3 bounds each plane's footprint by the
     camera's frustum."""
-    dev = c_primed.device
-    f32 = torch.float32
-    mid = torch.tensor([*vs_p, spec.focal, spec.centre, params.trunc_dist * 1000.0,
-                        float(params.tsdf_max_weight)], dtype=f32, device=dev)
-    tail = torch.tensor([float(intr.width), float(intr.height), 0.0, 0.0], dtype=f32,
-                        device=dev)
+    mid, tail = _sweep_consts(tuple(vs_p), spec, params.trunc_dist * 1000.0,
+                              float(params.tsdf_max_weight), intr.width, intr.height,
+                              c_primed.device)
     return torch.cat([c_primed.float(), mid, r_max_mm.reshape(1).float(),
                       gate.reshape(1).float(), tail, face_prm.float()])
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_consts(vs_p, spec: FaceSpec, trunc_mm: float, max_weight: float, width: int,
+                  height: int, device):
+    """The constant parts of `sweep_params` on `device`."""
+    return (constant([*vs_p, spec.focal, spec.centre, trunc_mm, max_weight], torch.float32,
+                     device),
+            constant([float(width), float(height), 0.0, 0.0], torch.float32, device))
 
 
 def prime(a: torch.Tensor, frame: FaceFrame) -> torch.Tensor:
@@ -337,6 +350,12 @@ def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _sweep_axes(device):
+    """[6, 3] f32: each face frame's sweep direction (D's last row)."""
+    return constant(np.stack([fr.D[2] for fr in face_frames()]), torch.float32, device)
+
+
 def faces_needed(vol2cam: Pose, intr: Intrinsics, margin: float = _FACE_MARGIN) -> torch.Tensor:
     """bool [6] device flags in face_frames() order: True when a sampled
     frustum direction (7x7 pixel grid) is within `margin` of the face's
@@ -351,7 +370,7 @@ def faces_needed(vol2cam: Pose, intr: Intrinsics, margin: float = _FACE_MARGIN) 
     d_cam = torch.stack([lx, ly, torch.ones((n, n), device=dev)], dim=-1)
     d_vol = d_cam @ R  # R^T @ d_cam
     dinf = d_vol.abs().amax(dim=-1)
-    D = torch.as_tensor(np.stack([fr.D[2] for fr in face_frames()]), device=dev)
+    D = _sweep_axes(dev)
     comp = torch.einsum("fk,hwk->fhw", D, d_vol)
     return (comp >= margin * dinf).flatten(1).any(dim=1)
 

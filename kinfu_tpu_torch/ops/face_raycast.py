@@ -20,20 +20,31 @@ ownership (8x128 face tiles with any pixel inside the padded cone). It
 drops what only skipped work: the occupancy pooling, the summed-area
 tables and the visit lists (L321-443).
 
-K5 (`resample_face`, csrc/resample_face.cu) replaces `_resample_kernel`
-(L579-624): one thread per camera pixel takes the nearest face pixel.
+K5 (`resample_composite`, csrc/resample_face.cu) replaces
+`_resample_kernel` (L579-624) and the per-face glue around it: one launch
+a frame, one thread per camera pixel, finds the face that owns the pixel's
+ray (the exact ownership test of `_face_pass`, L699-705), takes that
+face's nearest face pixel and writes the composite vertex, normal and
+valid mask in the volume frame, as the fused step's composite over the
+faces (kinfu_tpu/ops/fused_step.py:132-144) keeps what the owning face
+gives.
 
-`sweep_rays_plain` and `resample_face_plain` are their plain PyTorch
-versions.
+`sweep_rays_plain` and `resample_composite_plain` are their plain PyTorch
+versions; `resample_face_plain` is the one-face resample of the JAX
+package's `_resample_face`, whose arithmetic the composite's plain version
+repeats for each face.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from kinfu_tpu_torch.config import KinFuParams
+from kinfu_tpu_torch.device import constant
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.numerics import recip, rint_index
@@ -41,7 +52,8 @@ from kinfu_tpu_torch.ops import kernels
 from kinfu_tpu_torch.ops.face_integrate import prime
 from kinfu_tpu_torch.ops.facewarp import (
     FaceFrame,
-    face_params,
+    face_frames,
+    frame_tensors,
     primed_offset,
     primed_voxel_size,
 )
@@ -71,10 +83,23 @@ def default_ray_spec() -> RaySpec:
 
 def prime_geometry(frame: FaceFrame, params: KinFuParams, device):
     """(D [3,3], offset [3], primed voxel size) of a face frame."""
-    D = torch.as_tensor(frame.D, dtype=torch.float32, device=device)
-    off = torch.as_tensor(primed_offset(frame, params.volume_dims, params.voxel_size),
-                          device=device)
+    D, off = frame_tensors(frame, params.volume_dims, params.voxel_size, device)
     return D, off, primed_voxel_size(frame, params.voxel_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _ray_consts(vs_p, spec: RaySpec, device):
+    """The constant parts of `ray_params` on `device`: primed voxel size,
+    face focal, face centre, t_cover, ownership tan bound; 5 spare zeros."""
+    f32 = torch.float32
+    vs = torch.tensor(vs_p, dtype=f32)
+    f = torch.tensor(spec.focal, dtype=f32)
+    # farthest plane the TPU kernel's 4 row windows cover (L161), in its
+    # float32 operation order
+    t_cover = torch.tensor((8.0 * _N_WIN - 9.0) / 7.0, dtype=f32) * f * vs[1] * 0.99
+    tail = torch.tensor([spec.centre, 1.0 + _OWN_PAD_PX / spec.focal], dtype=f32)
+    mid = torch.cat([vs, f.reshape(1), tail[:1], t_cover.reshape(1), tail[1:]])
+    return constant(mid, f32, device), constant([0.0] * 5, f32, device)
 
 
 def ray_params(org_p: torch.Tensor, vs_p, spec: RaySpec,
@@ -82,16 +107,8 @@ def ray_params(org_p: torch.Tensor, vs_p, spec: RaySpec,
     """K4's device parameter block f32[16]: primed origin (3), primed voxel
     size (3), face focal, face centre, t_cover, ownership tan bound, gate
     (1 = march, 0 = write no events), 5 spare."""
-    dev = org_p.device
-    f32 = torch.float32
-    vs = torch.tensor(vs_p, dtype=f32, device=dev)
-    f = torch.tensor(spec.focal, dtype=f32, device=dev)
-    # farthest plane the TPU kernel's 4 row windows cover (L161), in its
-    # float32 operation order
-    t_cover = torch.tensor((8.0 * _N_WIN - 9.0) / 7.0, dtype=f32, device=dev) * f * vs[1] * 0.99
-    tail = torch.tensor([spec.centre, 1.0 + _OWN_PAD_PX / spec.focal], dtype=f32, device=dev)
-    return torch.cat([org_p.float(), vs, f.reshape(1), tail[:1], t_cover.reshape(1),
-                      tail[1:], gate.reshape(1).float(), torch.zeros(5, device=dev)])
+    mid, spare = _ray_consts(tuple(vs_p), spec, org_p.device)
+    return torch.cat([org_p.float(), mid, gate.reshape(1).float(), spare])
 
 
 def _own_mask(spec: RaySpec, own_tan: torch.Tensor, device) -> torch.Tensor:
@@ -291,9 +308,8 @@ def face_fields(hit: torch.Tensor, back: torch.Tensor, origin_p: torch.Tensor,
     `jnp.roll`."""
     F = spec.size
     dev = hit.device
-    inf = torch.tensor(_INF, dtype=torch.float32, device=dev)
     ok = (hit < back) & (hit < _INF)
-    t = torch.where(ok, hit, inf)
+    t = torch.where(ok, hit, _INF)
 
     pix = torch.arange(F, dtype=torch.float32, device=dev)
     dxr = ((pix - spec.centre) * recip(spec.focal))[None, :]
@@ -377,57 +393,163 @@ def resample_face_plain(t_f: torch.Tensor, n_f: torch.Tensor, prm: torch.Tensor,
     return t, n
 
 
-def resample_face(t_f: torch.Tensor, n_f: torch.Tensor, prm: torch.Tensor,
-                  intr: Intrinsics) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5: camera-grid (t [H,W], normal' [H,W,3]). CPU tensors take the
-    plain version; CUDA tensors launch csrc/resample_face.cu."""
-    if t_f.device.type == "cpu":
-        return resample_face_plain(t_f, n_f, prm, intr)
-    kernels.library()
-    F = t_f.shape[0]
-    kernels.check_cuda("resample_face", t_f, n_f, prm)
-    kernels.check("resample_face", t_f, torch.float32, (F, F))
-    kernels.check("resample_face", n_f, torch.float32, (F, F, 3))
-    kernels.check("resample_face", prm, torch.float32, (16,))
+#: columns of the composite's parameter block, per face: A (camera ray to
+#: primed direction, row-major), the primed camera origin, the primed
+#: offset, each primed axis's natural axis and sign (D's rows), the
+#: ownership flags gt_x, gt_y, one spare
+COMPOSITE_COLS = 24
+#: the faces K5 composites: all of face_frames(), in its order
+_N_FACES = len(face_frames())
+
+
+@functools.lru_cache(maxsize=None)
+def _composite_consts(dims_xyz, voxel_size, device):
+    """(D [6,3,3], the constant columns [6,12] of the block) on `device`."""
+    frames = face_frames()
+    tail = np.zeros((len(frames), 12), np.float32)
+    for f, fr in enumerate(frames):
+        tail[f, 0:3] = primed_offset(fr, dims_xyz, voxel_size)
+        tail[f, 3:6] = np.abs(fr.D).argmax(axis=1)
+        tail[f, 6:9] = fr.D.sum(axis=1)
+        tail[f, 9:11] = fr.gt_x, fr.gt_y
+    return (constant(np.stack([fr.D for fr in frames]), torch.float32, device),
+            constant(tail, torch.float32, device))
+
+
+def composite_params(cam2vol: Pose, params: KinFuParams) -> torch.Tensor:
+    """K5's device parameter block f32[6, COMPOSITE_COLS] in face_frames()
+    order; column 9:12 is each face's primed camera origin D org + off,
+    which the face's sweep (K4) and shading take too."""
+    R, org = cam2vol
+    D, tail = _composite_consts(tuple(params.volume_dims), tuple(params.voxel_size), R.device)
+    A = D @ R  # camera pixel ray -> primed direction
+    org_p = D @ org + tail[:, 0:3]
+    return torch.cat([A.reshape(-1, 9), org_p, tail], dim=1)
+
+
+def _owned_rays(prm: torch.Tensor, gates: torch.Tensor, intr: Intrinsics, F: int,
+                spec: RaySpec):
+    """Per face f, in order: (f, primed ray (dpx, dpy, dpz) [H, W] each,
+    own & gates[f], inb, the linear index of the nearest face pixel). A
+    pixel's ray is owned by the face whose primed z dominates its |x| and
+    |y| (z>y>x tie-break, the exact test of pallas_raycast.py:699-705); inb
+    says that the nearest face pixel of a forward ray lies on the face
+    (pallas_raycast.py:579-624). The primed ray is A [lx, ly, 1] written
+    element-wise, in K5's order."""
+    dev = prm.device
+    lx = ((torch.arange(intr.width, dtype=torch.float32, device=dev) - intr.cx)
+          * recip(intr.fx))[None, :]
+    ly = ((torch.arange(intr.height, dtype=torch.float32, device=dev) - intr.cy)
+          * recip(intr.fy))[:, None]
+    f32 = np.float32
+    focal, centre = float(f32(spec.focal)), float(f32(spec.centre))
+    for f in range(prm.shape[0]):
+        a = prm[f]
+        dpx = a[0] * lx + a[1] * ly + a[2]
+        dpy = a[3] * lx + a[4] * ly + a[5]
+        dpz = a[6] * lx + a[7] * ly + a[8]
+        adx, ady = dpx.abs(), dpy.abs()
+        own_x = torch.where(a[21] != 0, adx < dpz, adx <= dpz)
+        own_y = torch.where(a[22] != 0, ady < dpz, ady <= dpz)
+        own = (dpz > 0) & own_x & own_y & gates[f]
+        fwd = dpz > 1e-6
+        zs = torch.where(fwd, dpz, torch.ones_like(dpz))
+        fu = rint_index(focal * dpx / zs + centre)
+        fv = rint_index(focal * dpy / zs + centre)
+        inb = fwd & (fu >= 0) & (fu < F) & (fv >= 0) & (fv < F)
+        yield f, (dpx, dpy, dpz), own, inb, fv.clamp(0, F - 1) * F + fu.clamp(0, F - 1)
+
+
+def resample_composite_plain(t_f: Sequence[torch.Tensor], n_f: Sequence[torch.Tensor],
+                             prm: torch.Tensor, gates: torch.Tensor, intr: Intrinsics,
+                             spec: RaySpec):
+    """Plain PyTorch version of K5: the six faces' (t [F,F], normal' [F,F,3])
+    resampled onto the camera grid and composited. Returns (vertex [H,W,3],
+    normal [H,W,3], valid [H,W]) in the volume frame, zero where no face
+    with its gate set owns the pixel or took a sample: per face, in face
+    order, the resample of `resample_face_plain`, the vertex on the pixel's
+    ray p' = org' + d' / max(d'z, 1e-9) t, unprimed by the face's signed
+    permutation (an index and a sign), kept where the face owns the pixel
+    and sampled a hit (`_face_pass` and the composite of
+    kinfu_tpu/ops/fused_step.py:132-144)."""
     h, w = intr.height, intr.width
-    t = torch.empty((h, w), dtype=torch.float32, device=t_f.device)
-    n = torch.empty((h, w, 3), dtype=torch.float32, device=t_f.device)
+    dev = prm.device
+    F = t_f[0].shape[0]
+    vertex = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    normal = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    valid = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    axes, signs = prm[:, 15:18].long().tolist(), prm[:, 18:21].tolist()
+    for f, d_p, own, inb, lin in _owned_rays(prm, gates, intr, F, spec):
+        t = torch.where(inb, t_f[f].reshape(-1)[lin], _INF)
+        n_p = torch.where(inb[..., None], n_f[f].reshape(-1, 3)[lin], 0.0)
+        ok = t < _INF
+        tsafe = torch.where(ok, t, 0.0)
+        dzc = torch.clamp(d_p[2], min=1e-9)
+        p_v, n_v = [None] * 3, [None] * 3
+        for i in range(3):
+            q = prm[f, 9 + i] + d_p[i] / dzc * tsafe - prm[f, 12 + i]
+            p_v[axes[f][i]] = signs[f][i] * q
+            n_v[axes[f][i]] = signs[f][i] * n_p[..., i]
+        p_v, n_v = torch.stack(p_v, dim=-1), torch.stack(n_v, dim=-1)
+        m = own & ok
+        vertex = torch.where(m[..., None], p_v, vertex)
+        normal = torch.where(m[..., None], n_v, normal)
+        valid = (m & (n_v.abs() > 0).any(dim=-1)) | valid
+    return vertex, normal, valid
+
+
+def resample_composite_work(prm: torch.Tensor, gates: torch.Tensor, intr: Intrinsics,
+                            F: int, spec: RaySpec) -> torch.Tensor:
+    """What K5 must read of the face fields on these inputs, as a device
+    count: the distinct face pixels (of all six faces) that an owned camera
+    pixel samples (each 16 bytes of t and normal'). chip_smoke.py turns it
+    into K5's bound."""
+    read = torch.zeros(prm.shape[0] * F * F, dtype=torch.bool, device=prm.device)
+    for f, _, own, inb, lin in _owned_rays(prm, gates, intr, F, spec):
+        read[f * F * F + lin[own & inb]] = True
+    return read.sum()
+
+
+def resample_composite(t_f: Sequence[torch.Tensor], n_f: Sequence[torch.Tensor],
+                       prm: torch.Tensor, gates: torch.Tensor, intr: Intrinsics,
+                       spec: RaySpec):
+    """K5: (vertex, normal, valid) of the camera grid from the six faces'
+    fields, in one launch. CPU tensors take the plain version; CUDA tensors
+    launch csrc/resample_face.cu."""
+    if prm.device.type == "cpu":
+        return resample_composite_plain(t_f, n_f, prm, gates, intr, spec)
+    kernels.library()
+    nf = _N_FACES
+    F = t_f[0].shape[0]
+    kernels.check_cuda("resample_face", *t_f, *n_f, prm, gates)
+    if len(t_f) != nf or len(n_f) != nf:
+        raise ValueError(f"resample_face: expected the fields of {nf} faces")
+    for t, n in zip(t_f, n_f):
+        kernels.check("resample_face", t, torch.float32, (F, F))
+        kernels.check("resample_face", n, torch.float32, (F, F, 3))
+    kernels.check("resample_face", prm, torch.float32, (nf, COMPOSITE_COLS))
+    kernels.check("resample_face", gates, torch.bool, (nf,))
+    h, w = intr.height, intr.width
+    vertex = torch.empty((h, w, 3), dtype=torch.float32, device=prm.device)
+    normal = torch.empty((h, w, 3), dtype=torch.float32, device=prm.device)
+    valid = torch.empty((h, w), dtype=torch.bool, device=prm.device)
     kernels.launch(
         "kinfu_resample_face",
-        kernels.ptr(t_f), kernels.ptr(n_f), kernels.ptr(prm), kernels.ptr(t),
-        kernels.ptr(n), h, w, F,
+        kernels.ptr_array(t_f), kernels.ptr_array(n_f), kernels.ptr(prm), kernels.ptr(gates),
+        kernels.ptr(vertex), kernels.ptr(normal), kernels.ptr(valid),
+        float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy),
+        float(spec.focal), float(spec.centre), h, w, F,
     )
-    return t, n
+    return vertex, normal, valid
 
 
-def face_pass(tsdf: torch.Tensor, frame: FaceFrame, cam2vol: Pose, intr: Intrinsics,
-              params: KinFuParams, spec: RaySpec, gate: torch.Tensor):
-    """Sweep (K4) + shade + resample (K5) for one face
-    (pallas_raycast.py:673-718). Returns camera-grid (vertex [H,W,3] and
-    normal [H,W,3] in the original volume frame, ok [H,W], own [H,W])."""
-    R, org = cam2vol
-    dev = tsdf.device
-    D, off, vs_p = prime_geometry(frame, params, dev)
-    org_p = D @ org + off
-
+def sweep_and_shade(tsdf: torch.Tensor, frame: FaceFrame, org_p: torch.Tensor,
+                    params: KinFuParams, spec: RaySpec, gate: torch.Tensor):
+    """One face's sweep (K4) and shading: its face-grid (t [F,F],
+    normal' [F,F,3]), +inf and 0 where it has no surface, and everywhere
+    when the device flag `gate` is 0 (pallas_raycast.py:673-689).
+    `org_p` is the face's primed camera origin (`composite_params`)."""
+    vs_p = primed_voxel_size(frame, params.voxel_size)
     hit, back = sweep_rays(tsdf, frame, ray_params(org_p, vs_p, spec, gate), spec)
     t_f, n_f, _ = face_fields(hit, back, org_p, spec)
-
-    A = D @ R  # camera pixel ray -> primed direction
-    t_cam, n_cam_p = resample_face(t_f, n_f.contiguous(), face_params(A, intr, gate, spec),
-                                   intr)
-
-    # exact exclusive ownership of camera pixels (face_frames partition)
-    d_p = intr.pixel_rays(dev) @ A.T
-    adx, ady, dz = d_p[..., 0].abs(), d_p[..., 1].abs(), d_p[..., 2]
-    own_x = (adx < dz) if frame.gt_x else (adx <= dz)
-    own_y = (ady < dz) if frame.gt_y else (ady <= dz)
-    own = (dz > 0) & own_x & own_y
-
-    ok = t_cam < _INF
-    tsafe = torch.where(ok, t_cam, torch.zeros_like(t_cam))
-    p_p = org_p + d_p / torch.clamp(dz, min=1e-9)[..., None] * tsafe[..., None]
-    # unprime: p = D^T (p' - off), n = D^T n'
-    p_v = (p_p - off) @ D
-    n_v = n_cam_p @ D
-    return p_v, n_v, ok, own
+    return t_f, n_f

@@ -18,11 +18,13 @@ computes exactly what `_build_face_jnp` + `_stack_mips` compute.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from kinfu_tpu_torch.device import constant
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.numerics import rint_index, sqrt32
@@ -136,6 +138,20 @@ def primed_voxel_size(frame: FaceFrame, voxel_size) -> Tuple[float, float, float
     return tuple(float(voxel_size[int(np.argmax(np.abs(frame.D[i])))]) for i in range(3))
 
 
+@functools.lru_cache(maxsize=None)
+def _frame_tensors(name: str, axes, flip: bool, dims_xyz, voxel_size, device):
+    frame = next(fr for fr in face_frames() if (fr.name, fr.axes, fr.flip) == (name, axes, flip))
+    return (constant(frame.D, torch.float32, device),
+            constant(primed_offset(frame, dims_xyz, voxel_size), torch.float32, device))
+
+
+def frame_tensors(frame: FaceFrame, dims_xyz, voxel_size, device):
+    """(D [3,3], primed offset [3]) of a face frame on `device`, built once
+    per frame, volume and device (no host copy in the step)."""
+    return _frame_tensors(frame.name, frame.axes, frame.flip, tuple(dims_xyz),
+                          tuple(voxel_size), torch.device(device))
+
+
 def face_geometry(vol2cam: Pose, frame: FaceFrame, dims_xyz, voxel_size):
     """(A camera-from-primed direction map [3,3], c_primed [3]) for a face
     frame (kinfu_tpu/ops/facewarp.py:193-210)."""
@@ -143,22 +159,24 @@ def face_geometry(vol2cam: Pose, frame: FaceFrame, dims_xyz, voxel_size):
     # camera centre in volume coords, -R^T t, summed in the order of XLA's
     # dot (a library matmul may fuse or reorder and move it by an ulp)
     c = -(R[0] * t[0] + R[1] * t[1] + R[2] * t[2])
-    D = torch.as_tensor(frame.D, dtype=torch.float32, device=R.device)
-    off = torch.as_tensor(primed_offset(frame, dims_xyz, voxel_size), device=R.device)
+    D, off = frame_tensors(frame, dims_xyz, voxel_size, R.device)
     c_primed = D @ c + off
     A = R @ D.T  # primed -> original volume frame, then to camera
     return A, c_primed
+
+
+@functools.lru_cache(maxsize=None)
+def _face_param_tail(intr: Intrinsics, focal: float, centre: float, device):
+    return (constant([intr.fx, intr.fy, intr.cx, intr.cy], torch.float32, device),
+            constant([focal, centre], torch.float32, device))
 
 
 def face_params(A: torch.Tensor, intr: Intrinsics, gate: torch.Tensor,
                 spec: FaceSpec) -> torch.Tensor:
     """K2's device parameter block f32[16]: A row-major (9), fx, fy, cx, cy,
     gate (1 = build, 0 = write an empty stack), face focal, face centre."""
-    dev = A.device
-    tail = torch.tensor([intr.fx, intr.fy, intr.cx, intr.cy], dtype=torch.float32,
-                        device=dev)
-    face = torch.tensor([spec.focal, spec.centre], dtype=torch.float32, device=dev)
-    return torch.cat([A.reshape(-1).float(), tail, gate.reshape(1).float(), face])
+    cam, face = _face_param_tail(intr, float(spec.focal), float(spec.centre), A.device)
+    return torch.cat([A.reshape(-1).float(), cam, gate.reshape(1).float(), face])
 
 
 def _row_tables(spec: FaceSpec, device):

@@ -9,7 +9,8 @@ save, so the port keeps what the switch computed and drops how:
   - a loop over the six faces; each kernel reads the device flag
     `faces_needed[f] & good` and leaves its output empty when it is 0, so
     no Python branch reads the device;
-  - the raycast accumulation also masks each face with that flag;
+  - the raycast's resample and composite over the faces (L132-144) is one
+    launch of K5 for all six faces, which also reads those flags;
   - on failure the volume is reset by multiplying it in place with a device
     0/1 scalar, as the fail branch does (L197-211);
   - `pin_natural` (kinfu_tpu/ops/layout_pin.py), which pins TPU layouts
@@ -25,7 +26,12 @@ from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.ops.face_integrate import faces_needed, integrate_face
-from kinfu_tpu_torch.ops.face_raycast import RaySpec, face_pass
+from kinfu_tpu_torch.ops.face_raycast import (
+    RaySpec,
+    composite_params,
+    resample_composite,
+    sweep_and_shade,
+)
 from kinfu_tpu_torch.ops.facewarp import default_face_spec, face_frames, warp_dims_ok
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume, pack_rgb
 
@@ -62,7 +68,6 @@ def fused_update(
     size, focal = params.raycast_face
     rspec = RaySpec(size=int(size), focal=float(focal))
     fspec = default_face_spec()
-    h, w = intr.height, intr.width
     dev = depth_m.device
     R, tt = cam2vol
     # whole-matrix replacement of a non-finite pose (L106-114): element-wise
@@ -81,16 +86,11 @@ def fused_update(
     # TPU layout at this point; the volume here is updated in place and keeps
     # its layout, so its port is the identity
 
-    vertex = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    normal = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    valid = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    for f, frame in enumerate(frames):
-        p_v, n_v, ok, own = face_pass(vol.tsdf, frame, cam2vol, intr, params,
-                                      rspec, gates[f])
-        m = own & ok & gates[f]
-        vertex = torch.where(m[..., None], p_v, vertex)
-        normal = torch.where(m[..., None], n_v, normal)
-        valid = (m & (n_v.abs() > 0).any(dim=-1)) | valid
+    prm = composite_params(cam2vol, params)
+    fields = [sweep_and_shade(vol.tsdf, frame, prm[f, 9:12], params, rspec, gates[f])
+              for f, frame in enumerate(frames)]
+    vertex, normal, valid = resample_composite(
+        [t for t, _ in fields], [n for _, n in fields], prm, gates, intr, rspec)
 
     # failure: reset (kinectfusion.cpp:97-102) or keep for the relocalizer
     keep = good | (not reset_on_fail)

@@ -23,11 +23,18 @@ maps' size, so two row halves give sums that add up to the whole.
 launches csrc/icp_normal_eqs.cu for CUDA tensors (one launch per
 iteration: the last block to finish reduces the per-block partial sums in
 a fixed order and writes A, b and the count).
+
+`icp_solve_warped` runs a whole coarse-to-fine ICP on the card in one host
+call: the same kernel in its finishing form, which also solves the
+iteration's system and updates the pose in a device state block
+(`tracking/icp.py::finish_iteration` is its plain version), launched once
+per iteration from C.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +56,31 @@ _N_TERMS = 27
 #: ticket of the last-block reduction). Launches on one stream run one after
 #: another, so they can share it; launches on two streams cannot. The ticket
 #: is zeroed once here and reset to 0 by each launch's last block.
-_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+_scratch: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, ...]] = {}
+
+#: the finishing form's state block, f32[16]: R row-major (9), t (3), ok
+#: (1.0 / 0.0), the inlier count's int32 bits, 2 spare
+STATE_SIZE = 16
+
+
+def _get_scratch(dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """This (device, stream)'s (partial sums, partial counts, ticket, A, b,
+    count); the last three receive the systems no caller asked for."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = _scratch[key] = (
+            torch.empty((_MAX_BLOCKS, _N_TERMS), dtype=torch.float32, device=dev),
+            torch.empty((_MAX_BLOCKS,), dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.empty((6, 6), dtype=torch.float32, device=dev),
+            torch.empty((6,), dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev))
+    return scratch
+
+
+def _blocks(rows: int, w: int) -> int:
+    return max(1, min(_MAX_BLOCKS, (rows * w + _THREADS - 1) // _THREADS))
 
 
 def gates(dist_thres: float, sin_angle_thres: float) -> Tuple[float, float]:
@@ -171,15 +202,7 @@ def icp_normal_eqs_warped(
     kernels.check("icp_normal_eqs", t, torch.float32, (3,))
     dev = cur_vmap.device
     dist2, sin2 = gates(dist_thres, sin_angle_thres)
-    nblocks = max(1, min(_MAX_BLOCKS, (hc * w + _THREADS - 1) // _THREADS))
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    scratch = _scratch.get(key)
-    if scratch is None:
-        scratch = _scratch[key] = (
-            torch.empty((_MAX_BLOCKS, _N_TERMS), dtype=torch.float32, device=dev),
-            torch.empty((_MAX_BLOCKS,), dtype=torch.int32, device=dev),
-            torch.zeros((1,), dtype=torch.int32, device=dev))
-    partial_g, partial_n, ticket = scratch
+    partial_g, partial_n, ticket = _get_scratch(dev)[:3]
     A = torch.empty((6, 6), dtype=torch.float32, device=dev)
     b = torch.empty((6,), dtype=torch.float32, device=dev)
     ninl = torch.empty((), dtype=torch.int32, device=dev)
@@ -190,6 +213,75 @@ def icp_normal_eqs_warped(
         kernels.ptr(partial_n), kernels.ptr(ticket), kernels.ptr(A), kernels.ptr(b),
         kernels.ptr(ninl),
         float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy), dist2, sin2,
-        hc, h, w, nblocks, _THREADS,
+        hc, h, w, _blocks(hc, w), _THREADS,
     )
     return A, b, ninl
+
+
+def state_block(pose: Pose, ok: torch.Tensor) -> torch.Tensor:
+    """The finishing form's state block of a pose and a device ok flag
+    (inlier count 0)."""
+    dev = pose.R.device
+    count = torch.zeros((1,), dtype=torch.int32, device=dev).view(torch.float32)
+    return torch.cat([pose.R.reshape(9).float(), pose.t.reshape(3).float(),
+                      ok.reshape(1).float(), count,
+                      torch.zeros((2,), dtype=torch.float32, device=dev)])
+
+
+def unpack_state(state: torch.Tensor) -> Tuple[Pose, torch.Tensor, torch.Tensor]:
+    """(pose, ok, inliers) of a state block; the pose and the count are
+    views of it."""
+    return (Pose(state[:9].view(3, 3), state[9:12]), state[12] != 0,
+            state[13:14].view(torch.int32)[0])
+
+
+def icp_solve_warped(
+    levels: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                           Intrinsics, int]],
+    dist_thres: float,
+    sin_angle_thres: float,
+    start: Optional[torch.Tensor] = None,
+    system: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """K1's finishing form over a whole coarse-to-fine ICP, one host call:
+    `levels` lists (cur vertex, cur normal, model vertex, model normal,
+    intrinsics, iterations) in the order they run (coarsest first). The
+    first iteration starts from the state block `start` (default: the
+    identity and ok); the result is the state block after the last
+    iteration (`unpack_state`). `system`, when given, receives the last
+    iteration's (A, b, inliers). CUDA tensors only: the plain version is
+    `tracking/icp.py::rigid_icp_plain`."""
+    kernels.library()
+    dev = levels[0][0].device
+    maps, intr, dims, iters = [], [], [], []
+    for cv, cn, pv, pn, lintr, n in levels:
+        h, w, _ = pv.shape
+        kernels.check_cuda("icp_normal_eqs", cv, cn, pv, pn)
+        for m, rows in ((cv, cv.shape[0]), (cn, cv.shape[0]), (pv, h), (pn, h)):
+            kernels.check("icp_normal_eqs", m, torch.float32, (rows, w, 3))
+        maps += [cv, cn, pv, pn]
+        intr += [lintr.fx, lintr.fy, lintr.cx, lintr.cy]
+        dims += [cv.shape[0], h, w]
+        iters.append(int(n))
+    partial_g, partial_n, ticket, A, b, ninl = _get_scratch(dev)
+    if system is not None:
+        A, b, ninl = system
+        kernels.check_cuda("icp_normal_eqs", A, b, ninl, maps[0])
+        kernels.check("icp_normal_eqs", A, torch.float32, (6, 6))
+        kernels.check("icp_normal_eqs", b, torch.float32, (6,))
+        kernels.check("icp_normal_eqs", ninl, torch.int32, ())
+    state = torch.empty((STATE_SIZE,), dtype=torch.float32, device=dev)
+    if start is not None:
+        kernels.check_cuda("icp_normal_eqs", start, state)
+        kernels.check("icp_normal_eqs", start, torch.float32, (STATE_SIZE,))
+    dist2, sin2 = gates(dist_thres, sin_angle_thres)
+    kernels.launch(
+        "kinfu_icp_solve",
+        len(levels), kernels.ptr_array(maps), kernels.host_array(ctypes.c_float, intr),
+        kernels.host_array(ctypes.c_int, dims), kernels.host_array(ctypes.c_int, iters),
+        kernels.ptr(start) if start is not None else None, kernels.ptr(state),
+        kernels.ptr(partial_g), kernels.ptr(partial_n), kernels.ptr(ticket),
+        kernels.ptr(A), kernels.ptr(b), kernels.ptr(ninl), dist2, sin2, _MAX_BLOCKS,
+        _THREADS, key="icp_normal_eqs", count=sum(iters),
+    )
+    return state

@@ -51,8 +51,9 @@ _SIGNATURES = {
     "kinfu_build_face": [_P] * 5 + [_I] * 4 + [_P],
     "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P],
     "kinfu_sweep_rays": [_P] * 4 + [_I] * 8 + [_P],
-    "kinfu_resample_face": [_P] * 5 + [_I] * 3 + [_P],
+    "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P],
     "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P],
+    "kinfu_icp_solve": [_I] + [_P] * 12 + [_F] * 2 + [_I] * 2 + [_P],
 }
 
 _lib = None
@@ -138,15 +139,17 @@ def timed_build() -> float:
     return time.perf_counter() - t0
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, key: str | None = None, count: int = 1) -> None:
     """Call C entry point `name` on the current stream; raise on a CUDA
-    error reported by the launch; add one to the kernel's count."""
+    error reported by its launches; add `count`, the kernel launches the
+    entry point makes, to the count of kernel `key` (default: `name`
+    without its "kinfu_" prefix)."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[name.removeprefix("kinfu_")] += 1
+    LAUNCHES[key or name.removeprefix("kinfu_")] += count
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -168,3 +171,22 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_array(tensors) -> ctypes.c_void_p:
+    """A host array of the tensors' device pointers, for an entry point that
+    takes several tensors of one kind (the array lives as long as the
+    returned pointer object is referenced: until the call returns)."""
+    arr = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    p = ctypes.cast(arr, ctypes.c_void_p)
+    p._keep = arr
+    return p
+
+
+def host_array(ctype, values) -> ctypes.c_void_p:
+    """A host array of C numbers (`ctypes.c_float`, `ctypes.c_int`), passed
+    like `ptr_array`."""
+    arr = (ctype * len(values))(*values)
+    p = ctypes.cast(arr, ctypes.c_void_p)
+    p._keep = arr
+    return p

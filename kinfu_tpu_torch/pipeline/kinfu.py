@@ -17,7 +17,7 @@ from typing import Callable, Tuple
 import torch
 
 from kinfu_tpu_torch.config import KinFuParams
-from kinfu_tpu_torch.device import resolve_device
+from kinfu_tpu_torch.device import constant, resolve_device
 from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid, resize_points_normals
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import (
@@ -52,8 +52,11 @@ def init_state(params: KinFuParams, intr: Intrinsics, device="cuda") -> KinFuSta
     )
 
 
+@functools.lru_cache(maxsize=None)
 def _volume_pose(params: KinFuParams, device) -> Pose:
-    return pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    """World-from-volume pose on `device`, built once per configuration
+    (no host copy in the step)."""
+    return pose_from_matrix(constant(params.volume_pose, torch.float32, device))
 
 
 def _model_pyramid(vmap0, nmap0, levels: int):

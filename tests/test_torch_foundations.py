@@ -180,6 +180,69 @@ def test_numpy_copies_match_jax():
         assert tate.ate_rmse(est, gt, align=align) == jate.ate_rmse(est, gt, align=align)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else t.dtype)
+
+
+def test_step_constants_keep_their_bits():
+    """The step builds its constant blocks once per device and configuration
+    (no host copy, so no host sync, in the step); each block has the bits
+    the step built from Python values on every call before."""
+    from kinfu_tpu_torch.ops import face_integrate as fi
+    from kinfu_tpu_torch.ops import face_raycast as fr
+    from kinfu_tpu_torch.ops import facewarp as fw
+    from kinfu_tpu_torch.pipeline.kinfu import _volume_pose
+
+    f32 = torch.float32
+    rng = np.random.default_rng(5)
+    params = tcfg.tiny_params(128)
+    intr = TIntr(160, 120, 140.0, 140.0, 79.5, 59.5)
+    fspec, rspec = fw.default_face_spec(), fr.RaySpec(256, 104.0)
+    A = torch.as_tensor(rng.standard_normal((3, 3)).astype(np.float32))
+    gate = torch.tensor(True)
+    old = torch.cat([A.reshape(-1), torch.tensor([intr.fx, intr.fy, intr.cx, intr.cy], dtype=f32),
+                     gate.reshape(1).float(), torch.tensor([fspec.focal, fspec.centre], dtype=f32)])
+    assert torch.equal(_bits(fw.face_params(A, intr, gate, fspec)), _bits(old))
+
+    cam = tse3.Pose(tse3.rodrigues(torch.tensor([0.3, -0.2, 0.1])), torch.tensor([1.1, 1.4, 0.3]))
+    blk = fr.composite_params(cam, params)
+    for f, frame in enumerate(fw.face_frames()):
+        D, off, vs_p = fr.prime_geometry(frame, params, "cpu")
+        old_off = torch.as_tensor(fw.primed_offset(frame, params.volume_dims, params.voxel_size))
+        assert torch.equal(_bits(D), _bits(torch.as_tensor(frame.D, dtype=f32)))
+        assert torch.equal(_bits(off), _bits(old_off))
+        assert torch.equal(_bits(blk[f, :9]), _bits((D @ cam.R).reshape(9)))
+        org_p = D @ cam.t + off
+        assert torch.allclose(blk[f, 9:12], org_p, rtol=0, atol=0)
+        vs = torch.tensor(vs_p, dtype=f32)
+        fo = torch.tensor(rspec.focal, dtype=f32)
+        t_cover = torch.tensor(23.0 / 7.0, dtype=f32) * fo * vs[1] * 0.99
+        tail = torch.tensor([rspec.centre, 1.0 + 2.0 / rspec.focal], dtype=f32)
+        old = torch.cat([org_p, vs, fo.reshape(1), tail[:1], t_cover.reshape(1), tail[1:],
+                         gate.reshape(1).float(), torch.zeros(5)])
+        assert torch.equal(_bits(fr.ray_params(org_p, vs_p, rspec, gate)), _bits(old))
+        face_prm = fw.face_params(A, intr, gate, fspec)
+        r_max = torch.tensor(2345.0)
+        old = torch.cat([org_p, torch.tensor([*vs_p, fspec.focal, fspec.centre,
+                                              params.trunc_dist * 1000.0,
+                                              float(params.tsdf_max_weight)], dtype=f32),
+                         r_max.reshape(1), gate.reshape(1).float(),
+                         torch.tensor([160.0, 120.0, 0.0, 0.0]), face_prm])
+        new = fi.sweep_params(org_p, vs_p, fspec, params, r_max, gate, face_prm, intr)
+        assert torch.equal(_bits(new), _bits(old))
+
+    slope = torch.as_tensor(rng.uniform(0.1, 200.0, 64).astype(np.float32))
+    inv_scale, row_off, width, cover_ok = fi._mip_scalars(fspec, slope)
+    lvl = sum((slope > 2.0 * (1 << (l - 1))).long() for l in range(1, fspec.levels))
+    assert torch.equal(_bits(inv_scale), _bits(torch.tensor(
+        [1.0 / (1 << l) for l in range(fspec.levels)], dtype=f32)[lvl]))
+    assert torch.equal(row_off, torch.tensor(fspec.row_offsets)[lvl])
+    assert torch.equal(width, torch.tensor([fspec.size >> l for l in range(fspec.levels)])[lvl])
+    vol_pose = _volume_pose(params, torch.device("cpu"))
+    assert torch.equal(_bits(tse3.pose_matrix(vol_pose)), _bits(torch.as_tensor(params.volume_pose)))
+    assert _volume_pose(params, torch.device("cpu")) is vol_pose
+
+
 # ---- fail-loud checks ----------------------------------------------------
 
 
@@ -219,8 +282,11 @@ def test_non_fused_step_raises():
         state = init_state(params, intr, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             kinfu_step(state, depth, color, params, intr)
-    # the fused step takes warped ICP (K1's plain version on the CPU)
-    params = tcfg.tiny_params(128).replace(fused_mode="on", icp_mode="warped")
+    # the fused step takes warped ICP (K1's plain version on the CPU); 128^3
+    # is the least cube `warp_dims_ok` admits, a 128 px raycast face the
+    # least face
+    params = tcfg.tiny_params(128).replace(fused_mode="on", icp_mode="warped",
+                                           raycast_face=(128, 52.2))
     state, out = kinfu_step(init_state(params, intr, device="cpu"), depth, color, params, intr)
     assert bool(out.tracking_ok) and int(out.icp_inliers) == 0
     assert int(state.frame_count) == 2
@@ -244,9 +310,11 @@ def test_non_cpu_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
                             torch.empty(16, **meta), spec)
     rspec = face_raycast.RaySpec(128, 52.0)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        face_raycast.resample_face(torch.empty((128, 128), **meta),
-                                   torch.empty((128, 128, 3), **meta),
-                                   torch.empty(16, **meta), TIntr(16, 12, 10.0, 10.0, 7.5, 5.5))
+        face_raycast.resample_composite([torch.empty((128, 128), **meta)] * 6,
+                                        [torch.empty((128, 128, 3), **meta)] * 6,
+                                        torch.empty((6, face_raycast.COMPOSITE_COLS), **meta),
+                                        torch.empty(6, dtype=torch.bool, **meta),
+                                        TIntr(16, 12, 10.0, 10.0, 7.5, 5.5), rspec)
 
 
 def test_port_imports_no_jax():

@@ -9,6 +9,9 @@ face):
   - `face_fields` against `_face_fields` on the same events;
   - K5 `resample_face_plain` against the interpret-mode `_resample_face`
     on the same face fields: equal;
+  - K5 `resample_composite_plain` (all faces of a view in one pass) against
+    `_face_pass` and the fused step's composite over the faces, and
+    against the port's per-face form of the same composite;
   - K4's per-ray plane interval (`ray_plane_interval`) against the full
     march: restricting the march to it changes no bit.
 
@@ -80,7 +83,7 @@ def _face_inputs():
             org_p = D @ c2v.t + off
             A = D @ c2v.R
             out.append(dict(case=name, frame=fr, tsdf=tsdf, org_p=org_p.numpy(),
-                            vs_p=vs_p, A=A.numpy()))
+                            vs_p=vs_p, A=A.numpy(), c2v=c2v, flags=flags))
     return out
 
 
@@ -90,7 +93,9 @@ def faces():
     refs = torch_jaxref.run(
         ("face_pass_parts", dict(
             tsdf_p=prime(torch.as_tensor(it["tsdf"]), it["frame"]).numpy(),
-            origin_p=it["org_p"], vs_p=it["vs_p"], A=it["A"], intr=INTR_T, spec=SPEC_T))
+            origin_p=it["org_p"], vs_p=it["vs_p"], A=it["A"], intr=INTR_T, spec=SPEC_T,
+            face=it["frame"].name, R=it["c2v"].R.numpy(), t=it["c2v"].t.numpy(),
+            params_kw=(("volume_dims", (DIM,) * 3),)))
         for it in items)
     return [dict(it, ref=r) for it, r in zip(items, refs)]
 
@@ -143,11 +148,83 @@ def test_resample_face_plain_matches_jax(faces):
     for it in faces:
         ref = it["ref"]
         prm = face_params(torch.as_tensor(it["A"]), INTR, torch.tensor(True), SPEC)
-        t, n = tfr.resample_face(torch.as_tensor(ref["t_f"]),
-                                 torch.as_tensor(ref["n_f"]).contiguous(), prm, INTR)
+        t, n = tfr.resample_face_plain(torch.as_tensor(ref["t_f"]),
+                                       torch.as_tensor(ref["n_f"]).contiguous(), prm, INTR)
         tag = f"{it['case']} {it['frame'].name}"
         np.testing.assert_array_equal(t.numpy(), ref["t_cam"], err_msg=f"{tag} t")
         np.testing.assert_array_equal(n.numpy(), ref["n_cam"], err_msg=f"{tag} normal")
+
+
+def _composite_inputs(case, faces):
+    """The six faces' fields of one case (JAX's, where the face is needed;
+    what a gated-off sweep leaves elsewhere), its gates and its K5 block."""
+    its = {it["frame"].name: it for it in faces if it["case"] == case}
+    c2v, flags = next(iter(its.values()))["c2v"], next(iter(its.values()))["flags"]
+    F = SPEC.size
+    t_f = [torch.as_tensor(its[fr.name]["ref"]["t_f"]) if fr.name in its
+           else torch.full((F, F), 1e30) for fr in face_frames()]
+    n_f = [torch.as_tensor(its[fr.name]["ref"]["n_f"]).contiguous() if fr.name in its
+           else torch.zeros((F, F, 3)) for fr in face_frames()]
+    return its, t_f, n_f, flags, tfr.composite_params(c2v, PARAMS)
+
+
+def _composite(parts, h, w):
+    """The fused step's composite over faces (kinfu_tpu/ops/fused_step.py:
+    132-144) of [(p_v, n_v, ok, own), ...] in face order."""
+    vertex, normal = np.zeros((h, w, 3), np.float32), np.zeros((h, w, 3), np.float32)
+    valid = np.zeros((h, w), bool)
+    for p_v, n_v, ok, own in parts:
+        m = own & ok
+        vertex = np.where(m[..., None], p_v, vertex)
+        normal = np.where(m[..., None], n_v, normal)
+        valid = (m & (np.abs(n_v) > 0).any(-1)) | valid
+    return vertex, normal, valid
+
+
+#: composite against JAX: vertex (metres, within 3 m of the origin, a few
+#: float32 ulps of the primed ray, which JAX forms with an einsum and K5
+#: element-wise) and unit normals (copied, only unprimed)
+COMPOSITE_TOL = 1e-6
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CASES])
+def test_resample_composite_matches_jax(faces, case):
+    its, t_f, n_f, gates, prm = _composite_inputs(case, faces)
+    vertex, normal, valid = tfr.resample_composite(t_f, n_f, prm, gates, INTR, SPEC)
+    h, w = INTR.height, INTR.width
+    jv, jn, jvalid = _composite([(it["ref"]["p_v"], it["ref"]["n_v"], it["ref"]["ok_cam"],
+                                  it["ref"]["own"]) for it in its.values()], h, w)
+    np.testing.assert_array_equal(valid.numpy(), jvalid, err_msg=f"{case} valid")
+    assert valid.sum() > 50, case
+    np.testing.assert_allclose(vertex.numpy()[jvalid], jv[jvalid], rtol=0, atol=COMPOSITE_TOL)
+    np.testing.assert_allclose(normal.numpy()[jvalid], jn[jvalid], rtol=0, atol=COMPOSITE_TOL)
+
+    # the port's per-face form: K5's one-face resample, ownership from the
+    # pixel rays' matmul, unprime by D, composite
+    parts = []
+    rays = INTR.pixel_rays()
+    for f, fr in enumerate(face_frames()):
+        if fr.name not in its:
+            continue
+        D, off, _ = tfr.prime_geometry(fr, PARAMS, "cpu")
+        A = D @ its[fr.name]["c2v"].R
+        t_cam, n_cam = tfr.resample_face_plain(t_f[f], n_f[f],
+                                               face_params(A, INTR, torch.tensor(True), SPEC),
+                                               INTR)
+        d_p = rays @ A.T
+        adx, ady, dz = d_p[..., 0].abs(), d_p[..., 1].abs(), d_p[..., 2]
+        own = (dz > 0) & ((adx < dz) if fr.gt_x else (adx <= dz)) & (
+            (ady < dz) if fr.gt_y else (ady <= dz))
+        ok = t_cam < 1e30
+        tsafe = torch.where(ok, t_cam, 0.0)
+        p_p = prm[f, 9:12] + d_p / torch.clamp(dz, min=1e-9)[..., None] * tsafe[..., None]
+        parts.append(((p_p - off) @ D, n_cam @ D, ok, own))
+    ov, on_, ovalid = _composite([tuple(a.numpy() for a in p) for p in parts], h, w)
+    np.testing.assert_array_equal(valid.numpy(), ovalid, err_msg=f"{case} per-face valid")
+    print(f"{case}: {int(valid.sum())} valid pixels; max |vertex - JAX| "
+          f"{np.abs(vertex.numpy() - jv)[jvalid].max():.3g} m, per-face form "
+          f"{np.abs(vertex.numpy() - ov)[ovalid].max():.3g} m; max |normal - per-face| "
+          f"{np.abs(normal.numpy() - on_)[ovalid].max():.3g}")
 
 
 def test_gate_off_gives_no_events(faces):
@@ -156,9 +233,12 @@ def test_gate_off_gives_no_events(faces):
     hit, back = tfr.sweep_rays(torch.as_tensor(it["tsdf"]), it["frame"], prm, SPEC)
     assert (hit >= 1e30).all() and (back >= 1e30).all()
     prm5 = face_params(torch.as_tensor(it["A"]), INTR, torch.tensor(False), SPEC)
-    t, n = tfr.resample_face(torch.as_tensor(it["ref"]["t_f"]),
-                             torch.as_tensor(it["ref"]["n_f"]).contiguous(), prm5, INTR)
+    t, n = tfr.resample_face_plain(torch.as_tensor(it["ref"]["t_f"]),
+                                   torch.as_tensor(it["ref"]["n_f"]).contiguous(), prm5, INTR)
     assert (t >= 1e30).all() and not n.any()
+    _, t_f, n_f, gates, prm = _composite_inputs(it["case"], faces)
+    vertex, normal, valid = tfr.resample_composite(t_f, n_f, prm, gates & False, INTR, SPEC)
+    assert not (vertex.any() or normal.any() or valid.any())
 
 
 def test_sweep_work_counts_what_the_march_reads(faces):

@@ -184,14 +184,38 @@ def resample_face(t_f, n_f, A, intr, spec):
     return _np(_resample_fn(tuple(intr), tuple(spec))(t_f, n_f, A))
 
 
-def face_pass_parts(tsdf_p, origin_p, vs_p, A, intr, spec):
+def face_pass_parts(tsdf_p, origin_p, vs_p, A, intr, spec, face=None, R=None, t=None,
+                    params_kw=None):
     """One face of pallas_raycast._face_pass, stage by stage: the sweep
     (interpret), `_face_fields` on its events and `_resample_face`
-    (interpret) on those fields."""
+    (interpret) on those fields. With `face` (a face frame's name), the
+    camera pose (R, t) and the configuration, also `_face_pass` itself on
+    those stages' results (its sweep and resample return them instead of
+    running again): camera-grid p_v, n_v (volume frame), ok and own."""
     hit, back = sweep_face_rays(tsdf_p, origin_p, vs_p, spec)
     t_f, n_f, ok = face_fields(hit, back, origin_p, spec)
     t_cam, n_cam = resample_face(t_f, n_f, A, intr, spec)
-    return dict(hit=hit, back=back, t_f=t_f, n_f=n_f, ok=ok, t_cam=t_cam, n_cam=n_cam)
+    out = dict(hit=hit, back=back, t_f=t_f, n_f=n_f, ok=ok, t_cam=t_cam, n_cam=n_cam)
+    if face is not None:
+        from unittest import mock
+
+        import jax.numpy as jnp
+
+        from kinfu_tpu.config import KinFuParams
+        from kinfu_tpu.geometry.se3 import Pose
+        from kinfu_tpu.ops import pallas_raycast as pr
+        from kinfu_tpu.ops.facewarp import face_frames
+
+        frame = {fr.name: fr for fr in face_frames()}[face]
+        dims = KinFuParams(**dict(params_kw)).volume_dims
+        with mock.patch.object(pr, "_sweep_face_rays", lambda *a: (hit, back)), \
+                mock.patch.object(pr, "_resample_face", lambda *a: (t_cam, n_cam)):
+            p_v, n_v, ok_cam, own = pr._face_pass(
+                jnp.zeros(tuple(reversed(dims)), jnp.int16), frame,
+                Pose(jnp.asarray(R), jnp.asarray(t)), _intr(intr),
+                KinFuParams(**dict(params_kw)), pr.RaySpec(*spec), True)
+        out.update(_np(dict(p_v=p_v, n_v=n_v, ok_cam=ok_cam, own=own)))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
