@@ -13,15 +13,18 @@ Phases; any failure exits non-zero before the result line:
      (one launch against finish_iteration on its own system, the whole ICP
      of one host call against rigid_icp_plain, a singular system), timed
      beside the same ICP as one-iteration launches with the eager finish;
-     K2 build_face, K3 face_integrate and K4 sweep_rays on that 512^3 volume
-     and frame 3 (all six cube faces seen from the orbit pose, and each face
-     seen from the volume's centre looking along it); K5 resample_face, the
-     resample and composite of all six faces in one launch, on the orbit's
-     view and the six centre views; K3's and K4's time for a gated-off
-     call, K3's footprint voxels beside the voxels of its admitted planes,
-     and K4's count of rays whose hit or back bits differ from the plain
-     version's (no profiler before phase 4: once started in a process it
-     slows every later launch);
+     K2 build_face (the six faces' stacks in one launch, every face gated
+     on and then with the step's gates: the active stacks and r_max bit for
+     bit, and K3 leaving the volume unchanged on a gated-off face whose
+     unwritten stack holds a sentinel), K3 face_integrate and K4 sweep_rays
+     on that 512^3 volume and frame 3 (all six cube faces seen from the
+     orbit pose, and each face seen from the volume's centre looking along
+     it); K5 resample_face, the resample and composite of all six faces in
+     one launch, on the orbit's view and the six centre views; K3's and
+     K4's time for a gated-off call, K3's footprint voxels beside the voxels
+     of its admitted planes, and K4's count of rays whose hit or back bits
+     differ from the plain version's (no profiler before phase 6: once
+     started in a process it slows every later launch);
   4. count the host syncs of a step (sync-debug mode "warn"), then run the
      50-frame orbit of bench.py (640x480, fx=fy=525, 512^3 over 3 m,
      3-level pyramid, ICP (4,5,10), icp_mode="auto", which is the warped ICP
@@ -29,20 +32,33 @@ Phases; any failure exits non-zero before the result line:
      counts set to 0 just before, each step under sync-debug mode "error"
      (a host sync in the step fails the run); every frame after the first
      must track, the aligned ATE against exact ground truth must be <= 1 mm,
-     K1 must launch 19 times a frame, K5 once, every other kernel at least
-     once; then 10 frames with icp_mode="gather", which must track without
-     launching K1;
+     K1 must launch 19 times a frame, K2 and K5 once, every other kernel at
+     least once; then 10 frames with icp_mode="gather", also under
+     sync-debug mode "error", which must track without launching K1;
+  4b. the corner orbit of bench.py --corner (the orbit yawed 50 degrees
+     through the corner-facing scene), 50 frames under sync-debug mode
+     "error", with the orbit's checks, the gap to the JAX package's golden
+     poses and the faces gated on at each frame (a +-x face must be live on
+     some frames); then K2-K5 against their plain versions at its last
+     frame, where the +z and +x faces are live;
   5. the same 50 frames through KinFuSession with its default device, numpy
      frames in, the counts set to 0 just before: every frame tracks, the
      aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
      Phong render, the point cloud, the PLY and pose files, and a
      checkpoint that is loaded and tracks one more frame;
-  6. profile 8 steps of a fresh run: kernel time per frame, each port
-     kernel's device time per frame and a launch (per frame, its longest
-     launch, the active face on the orbit, and the others, gated off), and
-     the device's idle share (the full table goes to --profile-table); then
-     the device time and launches of the ICP of a frame alone, one host call
-     against one-iteration launches with the eager finish;
+  5b. the first 20 orbit frames written as a bundled dataset (PNGs and
+     intr.txt) through the port's writers, then `python -m kinfu_tpu_torch
+     run` and `eval` on it as subprocesses on the card: every frame tracks,
+     the aligned ATE is <= 1 mm, the PLY has enough points, and a session
+     in this process over the same PNGs gives the CLI's poses, launching K2
+     and K5 once a frame;
+  6. profile 8 steps of a fresh run of the orbit: kernel time per frame,
+     each port kernel's device time per frame and a launch (per frame, its
+     longest launch, the active face, and the others, gated off), and the
+     device's idle share (the full table goes to --profile-table); then the
+     device time and launches of the ICP of a frame alone, one host call
+     against one-iteration launches with the eager finish; then 8 steps of
+     the corner orbit where two faces are live (frames 20-27);
   7. print one JSON line describing the kernels, then the card, then the
      result line.
 
@@ -64,11 +80,17 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "doc" / "golden_poses_r05_synthetic_640x480_512.txt"
+#: the JAX package's hardware poses of the corner orbit (bench.py --corner)
+GOLDEN_CORNER = REPO / "doc" / "golden_poses_r05_corner_640x480_512.txt"
 PROFILE_TABLE = REPO / "build" / "profile_table.txt"
 #: where the session phase writes its PLY, poses and checkpoint files
 SESSION_OUT = REPO / "build" / "chip_smoke_session"
+#: where the CLI phase writes its dataset and the CLI's outputs
+CLI_OUT = REPO / "build" / "chip_smoke_cli"
 #: bench.py's orbit length
 ORBIT_FRAMES = 50
+#: frames of the orbit the CLI phase writes to disk and runs
+CLI_FRAMES = 20
 
 KERNELS = (
     # (launch-count key, name, source, TPU kernel it replaces)
@@ -114,7 +136,7 @@ SESSION_MIN_POINTS = 100_000
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 #: float32 operations per work item, counted from each kernel's source and
-#: rounded up: K1 per current pixel; K2 per face-stack pixel; K3 per voxel of
+#: rounded up: K1 per current pixel; K2 per level-0 pixel of a live face; K3 per voxel of
 #: a plane's footprint (projection and ownership), per voxel it updates and
 #: per voxel whose colour it mixes; K4 per ray-plane step; K5 per camera
 #: pixel and gated face (the primed ray and the ownership test) and per
@@ -163,6 +185,39 @@ def orbit_frames(n: int, intr):
     return [scene.render_frame(T, intr) for T in traj], gt
 
 
+def corner_frames(n: int, intr):
+    """bench.py --corner's frames: the orbit yawed 50 degrees about the
+    camera's y axis through the corner-facing scene, and the ground truth
+    relative to the first camera."""
+    from kinfu_tpu_torch.data.synthetic import (
+        corner_test_scene,
+        make_orbit_trajectory,
+        yaw_trajectory,
+    )
+
+    scene = corner_test_scene()
+    traj = yaw_trajectory(make_orbit_trajectory(n, angle_step_deg=0.3))
+    gt = [np.linalg.inv(traj[0]) @ T for T in traj]
+    return [scene.render_frame(T, intr) for T in traj], gt
+
+
+def face_gates(poses, oks, params, intr, device) -> np.ndarray:
+    """bool [N, 6]: the faces the step gated on at each frame, recomputed
+    from its tracked poses as the fused update computes them
+    (`faces_needed` of the frame's volume-to-camera pose, and tracking ok)."""
+    import torch
+
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.ops.face_integrate import faces_needed
+
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    out = []
+    for T, ok in zip(poses, oks):
+        cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
+        out.append(faces_needed(compose(inverse(cam), volp), intr).cpu().numpy() & bool(ok))
+    return np.stack(out)
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median milliseconds of `fn` over `reps` runs after `warmup` runs,
     each bracketed by CUDA events on the current stream."""
@@ -199,18 +254,103 @@ def inside_view(frame_, params):
     return T
 
 
-def check_kernels(state, frame, pose, params, intr, device):
+def check_faces(depth_m, col_packed, vol, vol2cam, params, intr, device, tag, timed: bool):
+    """Phase 3, K2: the six faces' stacks of one view in one launch, twice.
+    (a) Every face gated on: each stack and each r_max must equal the plain
+    version's; these stacks feed the K3 and K4 checks. (b) The path's gates
+    (`faces_needed`, as the step gates the faces): the active faces' stacks
+    and every r_max must equal the plain version's; then each gated-off
+    face's stack, which K2 leaves unwritten, is filled with a sentinel
+    (0x7FFF, -1) and K3 runs on it with its gate off, which must leave the
+    volume bit-unchanged. With `timed`, times (b) and returns its [ms,
+    plain_ms, bound_ms, bound_by]. Returns (stacks of (a), the path's gates,
+    the largest |kernel - plain|, the timing or None)."""
+    import torch
+
+    from kinfu_tpu_torch.ops import face_integrate as fi
+    from kinfu_tpu_torch.ops import facewarp as fw
+    from kinfu_tpu_torch.volume.tsdf import TSDFVolume
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms = cuda_ms if device.type == "cuda" else (lambda fn, **k: float("nan"))
+    fspec = fw.default_face_spec()
+    frames = fw.face_frames()
+    vs = params.voxel_size
+    geo = [fw.face_geometry(vol2cam, f, params.volume_dims, vs) for f in frames]
+    on = torch.ones(fw.FACES, dtype=torch.bool, device=device)
+    gates = fi.faces_needed(vol2cam, intr)
+
+    def blocks(g):
+        return torch.stack([fw.face_params(A, intr, g[f], fspec) for f, (A, _) in enumerate(geo)])
+
+    err = 0
+    out = {}
+    for name, g in (("all gated on", on), ("the path's gates", gates)):
+        prm6 = blocks(g)
+        rk, ck, mk = fw.build_faces(depth_m, col_packed, prm6, fspec)
+        rp, cp, mp = fw.build_faces_plain(depth_m, col_packed, prm6, fspec)
+        sync()
+        live = [f for f in range(fw.FACES) if bool(g[f])]
+        e = max([int((rk[f].int() - rp[f].int()).abs().max()) for f in live]
+                + [int((ck[f] - cp[f]).abs().max()) for f in live]
+                + [int((mk - mp).abs().max())])
+        err = max(err, e)
+        print(f"  K2 {tag}, {name} {[frames[f].name for f in live]}: max |kernel - plain| {e} "
+              f"on the active faces' stacks, r_max {mk.tolist()} (plain {mp.tolist()})",
+              flush=True)
+        if e:
+            _fail(f"K2 {tag}, {name}: the stacks or r_max differ from the plain version")
+        out[name] = (prm6, rk, ck, mk)
+
+    prm6, rg, cg, mg = out["the path's gates"]
+    off = [f for f in range(fw.FACES) if not bool(gates[f])]
+    vz = TSDFVolume(*(a.clone() for a in vol))
+    for f in off:
+        rg[f].fill_(0x7FFF)
+        cg[f].fill_(-1)
+        prm3 = fi.sweep_params(geo[f][1], fw.primed_voxel_size(frames[f], vs), fspec, params,
+                               mg[f].float(), gates[f], prm6[f], intr)
+        dims_p = tuple(vol.tsdf.shape[a] for a in frames[f].axes)
+        fi.sweep_face(vz, frames[f], rg[f], cg[f], prm3, fi.plane_table(fspec, prm3, dims_p))
+    sync()
+    same = all(torch.equal(a, b) for a, b in zip(vz, vol))
+    print(f"  K3 {tag}: gated off on {[frames[f].name for f in off]}, whose stacks hold a "
+          f"sentinel: the volume is bit-unchanged: {same}", flush=True)
+    if not same:
+        _fail(f"K3 {tag}: a gated-off sweep changed the volume (it read a gated-off stack)")
+    del vz
+
+    timing = None
+    if timed:
+        k_ms = ms(lambda: fw.build_faces(depth_m, col_packed, prm6, fspec))
+        p_ms = ms(lambda: fw.build_faces_plain(depth_m, col_packed, prm6, fspec), reps=5)
+        # per active face: its stack written once (range and colour, 6 bytes
+        # a stack pixel) and each camera pixel it loads read once (depth and
+        # colour, 8 bytes); 40 operations a level-0 pixel
+        n_live = int(gates.sum())
+        h, w = depth_m.shape
+        read = int(fw.build_faces_work(prm6, fspec, h, w))
+        b_ms, b_by = bound(n_live * 6 * fspec.stack_rows * fspec.size + 8 * read + nbytes(prm6),
+                           OPS["build_face"] * n_live * fspec.size * fspec.size)
+        print(f"  K2 {tag}: {n_live} active face(s) read {read} camera pixels; one launch "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        timing = [k_ms, p_ms, b_ms, b_by]
+    rk, ck, mk = out["all gated on"][1:]
+    return (rk, ck, mk), gates, err, timing
+
+
+def check_kernels(state, frame, views, params, intr, device, timed=None):
     """Phase 3: K2, K3 and K4 against their plain versions on the same
-    inputs: all six faces seen from the orbit pose `pose` (the main path's
-    view; timed on its +z face), then each face seen from the volume's
-    centre looking along it, so that every face gets real work: in each of
-    those views and in the timed one, K2's image must be non-empty, K3 must
-    update voxels and K4 must hit the surface. Returns
-    {key: [max_abs_err, ms, plain_ms, bound_ms, bound_by]}, the times and
-    bounds of the timed view. Prints, for the timed view, K3's and K4's
-    times for a gated-off call (CUDA events: mostly the wrapper's host time;
+    inputs. `views` is [(tag, world-from-camera pose, faces to check)];
+    K2 builds each view's six stacks (`check_faces`), and K3 and K4 run on
+    the listed faces, each gated on. Every face of a view other than the
+    timed one must do real work (K2's image non-empty, K3 voxels updated,
+    K4 hits), as must the timed face. `timed` = (tag, face name) of the view
+    and face to time, else None. Returns {key: [max_abs_err, ms, plain_ms,
+    bound_ms, bound_by]}. Prints, for the timed face, K3's and K4's times
+    for a gated-off call (CUDA events: mostly the wrapper's host time;
     phase 6 gives the device's) and K3's footprint voxels beside the voxels
-    of its admitted planes; for every view, K4's count of rays whose hit or
+    of its admitted planes; for every face, K4's count of rays whose hit or
     back bits differ from the plain version's."""
     import torch
 
@@ -230,145 +370,145 @@ def check_kernels(state, frame, pose, params, intr, device):
     size, focal = params.raycast_face
     rspec = fr.RaySpec(int(size), float(focal))
     on = torch.ones((), dtype=torch.bool, device=device)
-    dims_xyz = params.volume_dims
     vs = params.voxel_size
     vol = state.vol
     res = {k: [0.0, float("nan"), float("nan"), float("nan"), ""]
            for k, *_ in KERNELS if k not in ("icp_normal_eqs", "resample_face")}
-    k4_agree, k4_differ = [], 0
+    k4_agree, k4_differ, n_checked = [], 0, 0
 
-    views = [("orbit", pose, f) for f in fw.face_frames()]
-    views += [("inside", inside_view(f, params), f) for f in fw.face_frames()]
-    for view, T, frame_ in views:
-        timed_here = view == "orbit" and frame_.name == "+z"
-        must_work = timed_here or view == "inside"
-        tag = f"{view} {frame_.name}"
+    for view, T, names in views:
         cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
         vol2cam = compose(inverse(cam), volp)
         cam2vol = compose(inverse(volp), cam)
-
-        # K2
-        A, c_p = fw.face_geometry(vol2cam, frame_, dims_xyz, vs)
-        prm2 = fw.face_params(A, intr, on, fspec)
-        rk, ck = fw.build_face(depth_m, col_packed, prm2, fspec)
-        rp, cp = fw.build_face_plain(depth_m, col_packed, prm2, fspec)
-        sync()
-        err2 = max(int((rk.int() - rp.int()).abs().max()), int((ck - cp).abs().max()))
+        (rk6, ck6, mk6), _, err2, timing = check_faces(
+            depth_m, col_packed, vol, vol2cam, params, intr, device, view,
+            timed is not None and timed[0] == view)
         res["build_face"][0] = max(res["build_face"][0], float(err2))
-        if err2:
-            _fail(f"K2 {tag}: the stack differs from the plain version by up to {err2}")
-        if must_work and not bool(rk.any()):
-            _fail(f"K2 {tag}: the face image is empty, so the comparison tested nothing")
-        if timed_here:
-            res["build_face"][1] = ms(lambda: fw.build_face(depth_m, col_packed, prm2, fspec))
-            res["build_face"][2] = ms(lambda: fw.build_face_plain(depth_m, col_packed, prm2, fspec))
-            res["build_face"][3:] = bound(nbytes(depth_m, col_packed, prm2, rk, ck),
-                                          OPS["build_face"] * rk.numel())
+        if timing is not None:
+            res["build_face"][1:] = timing
+        for f, frame_ in enumerate(fw.face_frames()):
+            if frame_.name not in names:
+                continue
+            n_checked += 1
+            timed_here = timed == (view, frame_.name)
+            must_work = timed_here or timed is None or view != timed[0]
+            tag = f"{view} {frame_.name}"
+            rk, ck = rk6[f], ck6[f]
+            if must_work and not bool(rk.any()):
+                _fail(f"K2 {tag}: the face image is empty, so the comparison tested nothing")
+            A, c_p = fw.face_geometry(vol2cam, frame_, params.volume_dims, vs)
+            prm2 = fw.face_params(A, intr, on, fspec)
 
-        # K3 on copies of the fused volume
-        prm3 = fi.sweep_params(c_p, fw.primed_voxel_size(frame_, vs), fspec, params,
-                               rk.max().float(), on, prm2, intr)
-        dims_p = tuple(vol.tsdf.shape[a] for a in frame_.axes)
-        table = fi.plane_table(fspec, prm3, dims_p)
-        vk = TSDFVolume(*(a.clone() for a in vol))
-        vp = TSDFVolume(*(a.clone() for a in vol))
-        fi.sweep_face(vk, frame_, rk, ck, prm3, table)
-        # the voxels updated and colour-mixed depend on the face stack and the
-        # geometry only, so they hold for the timed sweeps below too
-        n_upd, n_col = (int(c) for c in fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table))
-        sync()
-        err3 = max(int((a.int() - b.int()).abs().max()) for a, b in zip(vk, vp))
-        changed = int((vk.weight != vol.weight).sum())
-        print(f"  K3 {tag}: {changed} voxels updated ({n_upd} by the plain version, {n_col} "
-              f"colour-mixed), max |kernel - plain| {err3}", flush=True)
-        res["face_integrate"][0] = max(res["face_integrate"][0], float(err3))
-        if err3:
-            _fail(f"K3 {tag}: kernel and plain version differ")
-        if must_work and not changed:
-            _fail(f"K3 {tag}: no voxel updated, so the comparison tested nothing")
-        if timed_here:
-            res["face_integrate"][1] = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, prm3, table))
-            res["face_integrate"][2] = ms(
-                lambda: fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table), reps=10, warmup=1)
-            off3 = prm3.clone()
-            off3[11] = 0.0
-            k3_off = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, off3, table))
-            # tsdf + weight (4 bytes) read and written where it updates, colour
-            # (4 bytes) read and written where it mixes; the face stack, the
-            # table and the parameters read once. Every voxel of a plane's
-            # footprint is projected and tested for ownership (the bound by
-            # every voxel of the admitted planes is printed beside it).
-            admitted = int((table[:, -1] != 0).sum()) * dims_p[1] * dims_p[2]
-            in_fp = int(fi.footprint_voxels(fi.plane_footprint(table, prm3, dims_p)))
-            old_ops = bound(8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
-                            OPS["face_integrate_gate"] * admitted
-                            + OPS["face_integrate_update"] * n_upd
-                            + OPS["face_integrate_colour"] * n_col)
-            res["face_integrate"][3:] = bound(
-                8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
-                OPS["face_integrate_gate"] * in_fp + OPS["face_integrate_update"] * n_upd
-                + OPS["face_integrate_colour"] * n_col)
-            print(f"  K3 {tag}: {in_fp} footprint voxels, {admitted} voxels of the admitted "
-                  f"planes; bound {res['face_integrate'][3]:.4f} ms "
-                  f"({res['face_integrate'][4]}) by the footprint, {old_ops[0]:.4f} ms "
-                  f"({old_ops[1]}) by the admitted planes; a gated-off call {k3_off:.4f} ms",
-                  flush=True)
-        del vk, vp
+            # K3 on copies of the fused volume
+            prm3 = fi.sweep_params(c_p, fw.primed_voxel_size(frame_, vs), fspec, params,
+                                   mk6[f].float(), on, prm2, intr)
+            dims_p = tuple(vol.tsdf.shape[a] for a in frame_.axes)
+            table = fi.plane_table(fspec, prm3, dims_p)
+            vk = TSDFVolume(*(a.clone() for a in vol))
+            vp = TSDFVolume(*(a.clone() for a in vol))
+            fi.sweep_face(vk, frame_, rk, ck, prm3, table)
+            # the voxels updated and colour-mixed depend on the face stack and
+            # the geometry only, so they hold for the timed sweeps below too
+            n_upd, n_col = (int(c) for c in fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table))
+            sync()
+            err3 = max(int((a.int() - b.int()).abs().max()) for a, b in zip(vk, vp))
+            changed = int((vk.weight != vol.weight).sum())
+            print(f"  K3 {tag}: {changed} voxels updated ({n_upd} by the plain version, {n_col} "
+                  f"colour-mixed), max |kernel - plain| {err3}", flush=True)
+            res["face_integrate"][0] = max(res["face_integrate"][0], float(err3))
+            if err3:
+                _fail(f"K3 {tag}: kernel and plain version differ")
+            if must_work and not changed:
+                _fail(f"K3 {tag}: no voxel updated, so the comparison tested nothing")
+            if timed_here:
+                res["face_integrate"][1] = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, prm3,
+                                                                    table))
+                res["face_integrate"][2] = ms(
+                    lambda: fi.sweep_face_plain(vp, frame_, rk, ck, prm3, table), reps=10,
+                    warmup=1)
+                off3 = prm3.clone()
+                off3[11] = 0.0
+                k3_off = ms(lambda: fi.sweep_face(vk, frame_, rk, ck, off3, table))
+                # tsdf + weight (4 bytes) read and written where it updates,
+                # colour (4 bytes) read and written where it mixes; the face
+                # stack, the table and the parameters read once. Every voxel of
+                # a plane's footprint is projected and tested for ownership
+                # (the bound by every voxel of the admitted planes is printed
+                # beside it).
+                admitted = int((table[:, -1] != 0).sum()) * dims_p[1] * dims_p[2]
+                in_fp = int(fi.footprint_voxels(fi.plane_footprint(table, prm3, dims_p)))
+                old_ops = bound(8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
+                                OPS["face_integrate_gate"] * admitted
+                                + OPS["face_integrate_update"] * n_upd
+                                + OPS["face_integrate_colour"] * n_col)
+                res["face_integrate"][3:] = bound(
+                    8 * n_upd + 8 * n_col + nbytes(rk, ck, prm3, table),
+                    OPS["face_integrate_gate"] * in_fp + OPS["face_integrate_update"] * n_upd
+                    + OPS["face_integrate_colour"] * n_col)
+                print(f"  K3 {tag}: {in_fp} footprint voxels, {admitted} voxels of the admitted "
+                      f"planes; bound {res['face_integrate'][3]:.4f} ms "
+                      f"({res['face_integrate'][4]}) by the footprint, {old_ops[0]:.4f} ms "
+                      f"({old_ops[1]}) by the admitted planes; a gated-off call {k3_off:.4f} ms",
+                      flush=True)
+            del vk, vp
 
-        # K4 on the fused volume
-        D, off, vs_p = fr.prime_geometry(frame_, params, device)
-        org_p = D @ cam2vol.t + off
-        prm4 = fr.ray_params(org_p, vs_p, rspec, on)
-        hk, bk = fr.sweep_rays(vol.tsdf, frame_, prm4, rspec)
-        hp, bp = fr.sweep_rays_plain(vol.tsdf, frame_, prm4, rspec)
-        sync()
-        okk = (hk < bk) & (hk < 1e30)
-        okp = (hp < bp) & (hp < 1e30)
-        agree = float((okk == okp).float().mean())
-        both = okk & okp
-        dt4 = float((hk - hp).abs()[both].max()) if bool(both.any()) else 0.0
-        differ = int(((hk.view(torch.int32) != hp.view(torch.int32))
-                      | (bk.view(torch.int32) != bp.view(torch.int32))).sum())
-        k4_agree.append(agree)
-        k4_differ += differ
-        print(f"  K4 {tag}: {int(okk.sum())} hits, mask agreement {agree:.6f}, "
-              f"max |dt| {dt4:.3g} m, {differ} rays with other hit or back bits", flush=True)
-        if agree < K4_MASK_AGREE or dt4 > K4_T_TOL:
-            _fail(f"K4 {tag}: agreement {agree} < {K4_MASK_AGREE} or |dt| {dt4} > {K4_T_TOL}")
-        if must_work and not bool(okk.any()):
-            _fail(f"K4 {tag}: no ray hit the surface, so the comparison tested nothing")
-        res["sweep_rays"][0] = max(res["sweep_rays"][0], dt4)
-        if timed_here:
-            res["sweep_rays"][1] = ms(lambda: fr.sweep_rays(vol.tsdf, frame_, prm4, rspec))
-            res["sweep_rays"][2] = ms(lambda: fr.sweep_rays_plain(vol.tsdf, frame_, prm4, rspec),
-                                      reps=10, warmup=1)
-            # each int16 voxel that a ray samples before it resolves, once; a
-            # step for each plane that a live ray marches
-            n_vox, n_steps = (int(c) for c in fr.sweep_rays_work(vol.tsdf, frame_, prm4, rspec))
-            print(f"  K4 {tag}: the rays sample {n_vox} distinct voxels in {n_steps} "
-                  f"ray-plane steps", flush=True)
-            res["sweep_rays"][3:] = bound(2 * n_vox + nbytes(prm4, hk, bk),
-                                          OPS["sweep_rays"] * n_steps)
-            off4 = prm4.clone()
-            off4[10] = 0.0
-            print(f"  K4 {tag}: a gated-off call "
-                  f"{ms(lambda: fr.sweep_rays(vol.tsdf, frame_, off4, rspec)):.4f} ms", flush=True)
+            # K4 on the fused volume
+            D, off, vs_p = fr.prime_geometry(frame_, params, device)
+            org_p = D @ cam2vol.t + off
+            prm4 = fr.ray_params(org_p, vs_p, rspec, on)
+            hk, bk = fr.sweep_rays(vol.tsdf, frame_, prm4, rspec)
+            hp, bp = fr.sweep_rays_plain(vol.tsdf, frame_, prm4, rspec)
+            sync()
+            okk = (hk < bk) & (hk < 1e30)
+            okp = (hp < bp) & (hp < 1e30)
+            agree = float((okk == okp).float().mean())
+            both = okk & okp
+            dt4 = float((hk - hp).abs()[both].max()) if bool(both.any()) else 0.0
+            differ = int(((hk.view(torch.int32) != hp.view(torch.int32))
+                          | (bk.view(torch.int32) != bp.view(torch.int32))).sum())
+            k4_agree.append(agree)
+            k4_differ += differ
+            print(f"  K4 {tag}: {int(okk.sum())} hits, mask agreement {agree:.6f}, "
+                  f"max |dt| {dt4:.3g} m, {differ} rays with other hit or back bits", flush=True)
+            if agree < K4_MASK_AGREE or dt4 > K4_T_TOL:
+                _fail(f"K4 {tag}: agreement {agree} < {K4_MASK_AGREE} or |dt| {dt4} > {K4_T_TOL}")
+            if must_work and not bool(okk.any()):
+                _fail(f"K4 {tag}: no ray hit the surface, so the comparison tested nothing")
+            res["sweep_rays"][0] = max(res["sweep_rays"][0], dt4)
+            if timed_here:
+                res["sweep_rays"][1] = ms(lambda: fr.sweep_rays(vol.tsdf, frame_, prm4, rspec))
+                res["sweep_rays"][2] = ms(
+                    lambda: fr.sweep_rays_plain(vol.tsdf, frame_, prm4, rspec), reps=10,
+                    warmup=1)
+                # each int16 voxel that a ray samples before it resolves, once;
+                # a step for each plane that a live ray marches
+                n_vox, n_steps = (int(c) for c in fr.sweep_rays_work(vol.tsdf, frame_, prm4,
+                                                                     rspec))
+                print(f"  K4 {tag}: the rays sample {n_vox} distinct voxels in {n_steps} "
+                      f"ray-plane steps", flush=True)
+                res["sweep_rays"][3:] = bound(2 * n_vox + nbytes(prm4, hk, bk),
+                                              OPS["sweep_rays"] * n_steps)
+                off4 = prm4.clone()
+                off4[10] = 0.0
+                print(f"  K4 {tag}: a gated-off call "
+                      f"{ms(lambda: fr.sweep_rays(vol.tsdf, frame_, off4, rspec)):.4f} ms",
+                      flush=True)
 
-    print(f"  K2 bit-exact, K3 int16/int32 equal on {len(views)} views; "
-          f"K4 min mask agreement {min(k4_agree):.6f}, {k4_differ} rays with other hit or "
-          f"back bits in all", flush=True)
+    print(f"  K2 bit-exact on {len(views)} views' six-face launches, K3 int16/int32 equal on "
+          f"{n_checked} faces; K4 min mask agreement {min(k4_agree):.6f}, {k4_differ} rays with "
+          f"other hit or back bits in all", flush=True)
     return res
 
 
-def check_composite(state, pose, params, intr, device):
+def check_composite(state, views, params, intr, device, timed=None):
     """Phase 3, K5: the one-launch resample and composite of all six faces
-    against its plain version, on the orbit's view `pose` and on the view
-    from the volume's centre along each face. The faces' fields come from
-    K4 and face_fields, gated by faces_needed as the step gates them. The
-    valid mask, the vertices and the normals must be equal (the count of
-    values whose bits differ, a signed zero, is printed), and each view must
-    have valid pixels. Times the orbit's view. Returns [max_abs_err, ms,
-    plain_ms, bound_ms, bound_by]."""
+    against its plain version, on each view of `views` [(tag, world-from-
+    camera pose)]. The faces' fields come from K4 and face_fields, gated by
+    faces_needed as the step gates them. The valid mask, the vertices and
+    the normals must be equal (the count of values whose bits differ, a
+    signed zero, is printed), and each view must have valid pixels. Times
+    the view tagged `timed`. Returns [max_abs_err, ms, plain_ms, bound_ms,
+    bound_by]."""
     import torch
 
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
@@ -382,8 +522,6 @@ def check_composite(state, pose, params, intr, device):
     size, focal = params.raycast_face
     rspec = fr.RaySpec(int(size), float(focal))
     res = [0.0, float("nan"), float("nan"), float("nan"), ""]
-    views = [("orbit", pose)] + [(f"inside {f.name}", inside_view(f, params))
-                                 for f in fw.face_frames()]
     for tag, T in views:
         cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
         cam2vol = compose(inverse(volp), cam)
@@ -406,7 +544,7 @@ def check_composite(state, pose, params, intr, device):
             _fail(f"K5 {tag}: the composite differs from the plain version")
         if not bool(okk.any()):
             _fail(f"K5 {tag}: no valid pixel, so the comparison tested nothing")
-        if tag == "orbit":
+        if tag == timed:
             res[1] = ms(lambda: fr.resample_composite(*args))
             res[2] = ms(lambda: fr.resample_composite_plain(*args))
             # each face pixel an owned camera pixel samples, read once (t and
@@ -774,14 +912,106 @@ def run_session(frames, gt, ref_poses, params, intr, out_dir: Path, **session_kw
     return launches, host_ms
 
 
+def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
+    """Phase 5b: the orbit's first `n` frames written as a bundled dataset
+    under `out_dir` through the port's writers (colour/*.png RGB8,
+    depth/*.png u16 mm, intr.txt with c = 1000), then `python -m
+    kinfu_tpu_torch run` on them as a subprocess on the card and
+    `python -m kinfu_tpu_torch eval` of its poses against the ground truth;
+    then a KinFuSession in this process over the same PNG frames, with the
+    launch counts set to 0 just before. Fails unless the subprocesses exit
+    0, every frame after the bootstrap tracks, the aligned ATE is <= 1 mm,
+    the PLY holds at least SESSION_MIN_POINTS points, the session's poses
+    are the CLI's within SESSION_POSE_TOL, and the session launched K2 and
+    K5 once a frame. Returns the session's launches."""
+    import shutil
+
+    import torch
+
+    from kinfu_tpu_torch.data.bundled import BundledDataset
+    from kinfu_tpu_torch.io.images import write_color_png, write_depth_png
+    from kinfu_tpu_torch.io.ply import read_ply
+    from kinfu_tpu_torch.io.poses import (
+        read_poses_reference_format,
+        write_poses_reference_format,
+    )
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.pipeline.session import KinFuSession
+
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    data = out_dir / "data"
+    (data / "color").mkdir(parents=True)
+    (data / "depth").mkdir()
+    for i, (depth, color) in enumerate(frames[:n]):
+        write_color_png(str(data / "color" / f"{i:04d}.png"), color)
+        write_depth_png(str(data / "depth" / f"{i:04d}.png"),
+                        np.clip(np.rint(depth), 0, 65535).astype(np.uint16))
+    (data / "intr.txt").write_text(f"{intr.fx} {intr.cx} {intr.fy} {intr.cy} 1000\n")
+    write_poses_reference_format(str(out_dir / "gt.txt"), gt[:n])
+    poses_f, ply_f, metrics_f = (out_dir / "poses.txt", out_dir / "cloud.ply",
+                                 out_dir / "metrics.jsonl")
+
+    def cli(*argv):
+        cmd = [sys.executable, "-m", "kinfu_tpu_torch", *argv]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, timeout=600)
+        print(f"    $ {' '.join(cmd[1:])}\n      exit {res.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; {res.stdout.strip().splitlines()[-1:]}",
+              flush=True)
+        if res.returncode != 0:
+            _fail(f"CLI: {' '.join(argv[:1])} exited {res.returncode}:\n{res.stderr[-3000:]}")
+        return res.stdout
+
+    cli("run", "--data", str(data), "--frames", str(n), "--save-poses", str(poses_f),
+        "--save-ply", str(ply_f), "--metrics", str(metrics_f), "--quiet")
+    ev = json.loads(cli("eval", "--est", str(poses_f), "--gt", str(out_dir / "gt.txt"))
+                    .strip().splitlines()[-1])
+    rows = [json.loads(line) for line in metrics_f.read_text().splitlines()]
+    tracked = sum(bool(r["tracking_ok"]) for r in rows[1:])
+    cli_poses = np.stack(read_poses_reference_format(str(poses_f)))
+    pts = read_ply(str(ply_f))
+    gap4 = float(np.abs(cli_poses - ref_poses[:n]).max()) if len(cli_poses) == n else np.inf
+    print(f"    CLI: tracked {tracked}/{n - 1} after the bootstrap; eval {ev}; {len(pts)} points "
+          f"in the PLY; max |pose - phase 4 pose| {gap4:.3g} (depth quantised to 1 mm)",
+          flush=True)
+    if len(rows) != n or tracked != n - 1 or len(cli_poses) != n:
+        _fail(f"CLI: {len(rows)} frames run, {tracked}/{n - 1} tracked, {len(cli_poses)} poses")
+    if ev["ate_rmse_m"] > ATE_MAX:
+        _fail(f"CLI: aligned ATE {ev['ate_rmse_m'] * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+    if len(pts) < SESSION_MIN_POINTS:
+        _fail(f"CLI: the PLY holds {len(pts)} points, fewer than {SESSION_MIN_POINTS}")
+
+    ds = BundledDataset(str(data))
+    sess = KinFuSession(ds.intrinsics, params.replace(fused_mode="on",
+                                                      depth_scale=ds.intrinsics.depth_scale))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    oks = [sess.pipeline(*ds[i]) for i in range(n)]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    gap = float(np.abs(np.stack(sess.pose_record) - cli_poses).max())
+    print(f"    session over the same PNG frames: {sum(oks)}/{n} ok, max |pose - CLI pose| "
+          f"{gap:.3g}; launches {launches}", flush=True)
+    if not all(oks) or gap > SESSION_POSE_TOL:
+        _fail(f"CLI: the in-process session differs from the CLI's poses by {gap}")
+    if launches.get("build_face") != n or launches.get("resample_face") != n:
+        _fail(f"CLI: the session launched K2 {launches.get('build_face')} and K5 "
+              f"{launches.get('resample_face')} times in {n} frames, not once a frame each")
+    return launches
+
+
 def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
-                  n: int = 10) -> None:
-    """Phase 6: torch.profiler over frames 2..n-1 of a fresh run. Prints the
-    kernels by device time, their sum per frame and its share of `ms_frame`
-    (the step's time without the profiler), each port kernel's device time
-    per frame and a launch (per frame, its longest launch and the median of
-    the others: on the orbit, the active face and the gated-off ones), and
-    writes the full table to `out_path`."""
+                  n: int = 10, first: int = 2, label: str = "orbit",
+                  icp: bool = True) -> None:
+    """Phase 6: torch.profiler over frames first..n-1 of a fresh run. Prints
+    the kernels by device time, their sum per frame and its share of
+    `ms_frame` (the step's time without the profiler), each port kernel's
+    device time per frame and a launch (per frame, its longest launch and
+    the median of the others: where one face is live, the active face and
+    the gated-off ones), and writes the full table to `out_path`; with
+    `icp`, then profiles the ICP of a frame alone (`profile_icp`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -792,38 +1022,39 @@ def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
     state = init_state(params, intr, device=device)
     dev = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
            for d, c in frames[:n]]
-    for d, c in dev[:2]:
+    for d, c in dev[:first]:
         state, _ = step(state, d, c)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for d, c in dev[2:]:
+        for d, c in dev[first:]:
             state, _ = step(state, d, c)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / (n - 2)
+    m = n - first
+    wall = (time.perf_counter() - t0) * 1e3 / m
     # kernel events only: an operator's self device time repeats its kernels'
     ev = sorted((e for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                 key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in ev) / 1e3 / (n - 2)
-    launches = sum(e.count for e in ev) / (n - 2)
-    print(f"[6] profile, frames 2-{n - 1} of a fresh run: kernels busy {busy:.3f} ms/frame in "
-          f"{launches:.0f} launches/frame; {busy / ms_frame:.1%} of the "
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / m
+    launches = sum(e.count for e in ev) / m
+    print(f"[6] profile, {label}, frames {first}-{n - 1} of a fresh run: kernels busy "
+          f"{busy:.3f} ms/frame in {launches:.0f} launches/frame; {busy / ms_frame:.1%} of the "
           f"{ms_frame:.3f} ms/frame step (device idle {1 - busy / ms_frame:.1%}); "
           f"{wall:.1f} ms/frame wall under the profiler", flush=True)
     for e in ev[:12]:
-        print(f"      {e.self_device_time_total / 1e3 / (n - 2):9.3f} ms/frame "
-              f"{e.count // (n - 2):5d}x  {e.key[:90]}", flush=True)
+        print(f"      {e.self_device_time_total / 1e3 / m:9.3f} ms/frame "
+              f"{e.count // m:5d}x  {e.key[:90]}", flush=True)
     launches_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     for key, name, *_ in KERNELS:
         mine = sorted((e for e in launches_ev if f"{key}_kernel" in e.name),
                       key=lambda e: e.time_range.start)
         each = [e.time_range.elapsed_us() / 1e3 for e in mine]
-        per = len(each) // (n - 2)
-        line = (f"    {name}: device {sum(each) / (n - 2):.3f} ms/frame in "
-                f"{len(each) / (n - 2):.0f} launches/frame")
-        if per > 1 and per * (n - 2) == len(each):
-            frames_ = [sorted(each[i * per:(i + 1) * per]) for i in range(n - 2)]
+        per = len(each) // m
+        line = (f"    {name}: device {sum(each) / m:.4f} ms/frame in "
+                f"{len(each) / m:.0f} launches/frame")
+        if per > 1 and per * m == len(each):
+            frames_ = [sorted(each[i * per:(i + 1) * per]) for i in range(m)]
             line += (f"; a launch: {float(np.median([f[-1] for f in frames_])):.4f} ms the "
                      f"longest of a frame, {float(np.median([t for f in frames_ for t in f[:-1]])):.4f}"
                      f" ms the others (medians)")
@@ -831,7 +1062,8 @@ def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     Path(out_path).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=80, max_name_column_width=90))
-    profile_icp(state, dev[-1][0], params, intr, device)
+    if icp:
+        profile_icp(state, dev[-1][0], params, intr, device)
 
 
 def profile_icp(state, depth, params, intr, device, n: int = 8) -> None:
@@ -869,6 +1101,99 @@ def profile_icp(state, depth, params, intr, device, n: int = 8) -> None:
         launches = sum(e.count for e in ev) / n
         print(f"    ICP of a frame, {name}: device {busy:.4f} ms in {launches:.0f} launches",
               flush=True)
+
+
+def gate_runs(gates: np.ndarray) -> str:
+    """'1 face on frames 0-18 [+z]; 2 faces on frames 19-49 [+z, +x]': the
+    runs of frames with the same faces gated on."""
+    from kinfu_tpu_torch.ops.facewarp import face_frames
+
+    names = [f.name for f in face_frames()]
+    runs, start = [], 0
+    for k in range(1, len(gates) + 1):
+        if k == len(gates) or (gates[k] != gates[start]).any():
+            on = [names[f] for f in np.nonzero(gates[start])[0]]
+            runs.append(f"{len(on)} on frames {start}-{k - 1} {on}")
+            start = k
+    return "; ".join(runs)
+
+
+def check_launches(launches, n: int, k1_want: int, where: str) -> None:
+    """Every kernel launched on the run of `n` frames; K1 19 times a frame
+    from one call, K2 (all six face stacks) and K5 (all six faces'
+    composite) once a frame."""
+    for key, name, *_ in KERNELS:
+        if launches.get(key, 0) <= 0:
+            _fail(f"{name} was not launched in {where}")
+    if launches["icp_normal_eqs"] != k1_want:
+        _fail(f"K1 launched {launches['icp_normal_eqs']} times in {where}, not {k1_want}")
+    for key in ("build_face", "resample_face"):
+        if launches[key] != n:
+            _fail(f"{key} launched {launches[key]} times in {where}, not once a frame ({n})")
+
+
+def run_corner(frames, gt, params, intr, device, res, k1_want: int, smi: str) -> float:
+    """Phase 4b: bench.py --corner's 50 frames through init_state +
+    kinfu_step, each step under sync-debug mode "error". Fails unless every
+    frame after the first tracks, the aligned ATE is <= 1 mm, K1 launches
+    19 times a frame and K2 and K5 once, and a +-x face is gated on in some
+    frame; prints the gap to the JAX package's golden poses and the faces
+    gated on at each frame. Then holds K2 (six faces, one launch), K3 and
+    K4 on every live face, and K5's composite against their plain versions
+    at the last frame's tracked pose on the volume the run fused, where two
+    faces are live, adding their largest errors to `res`. Returns the
+    run's ms/frame."""
+    import torch
+
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.io.poses import read_poses_reference_format
+    from kinfu_tpu_torch.ops.facewarp import face_frames
+
+    n = len(frames)
+    print(f"[4b] corner orbit (bench.py --corner): {n} frames through init_state + kinfu_step, "
+          f"each step under sync-debug mode \"error\"", flush=True)
+    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames, params, intr, device,
+                                                               no_sync=True)
+    gates = face_gates(poses, oks, params, intr, device)
+    ate = ate_rmse(list(poses), gt)
+    ate_raw = ate_rmse(list(poses), gt, align=False)
+    golden = read_poses_reference_format(str(GOLDEN_CORNER))[:n]
+    gap = max(float(np.linalg.norm(p[:3, 3] - g[:3, 3])) for p, g in zip(poses, golden))
+    ms_frame = float(np.median(frame_ms[2:])) if frame_ms is not None else float("nan")
+    x_faces = [f for f, fr in enumerate(face_frames()) if fr.name.endswith("x")]
+    x_frames = int(gates[:, x_faces].any(axis=1).sum())
+    print(f"    tracked {int(oks[1:].sum())}/{n - 1} frames after bootstrap; inliers at the last frame "
+          f"{int(inliers[-1])}; ATE vs exact ground truth: aligned {ate * 1e3:.4f} mm, raw "
+          f"{ate_raw * 1e3:.4f} mm; max translation gap to {GOLDEN_CORNER.name} "
+          f"{gap * 1e3:.4f} mm (printed, not gated)", flush=True)
+    print(f"    {ms_frame:.3f} ms/frame (median of frames 2-{n - 1}, CUDA events) on {smi}",
+          flush=True)
+    print(f"    faces gated on a frame: {gate_runs(gates)}; K3 active launches a frame: "
+          f"{np.bincount(gates.sum(axis=1)).tolist()} frames with 0, 1, 2, ... live faces; "
+          f"a +-x face on {x_frames} frames", flush=True)
+    print(f"    launches: {launches}; a frame: "
+          f"{ {k: v / n for k, v in sorted(launches.items())} }", flush=True)
+    if not oks[1:].all() or not np.isfinite(poses).all():
+        _fail(f"corner orbit: tracking failed at frames {np.nonzero(~oks[1:])[0] + 1}")
+    if ate > ATE_MAX:
+        _fail(f"corner orbit: aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+    check_launches(launches, n, k1_want, "the corner orbit")
+    if not x_frames or not gates.sum(axis=1).all():
+        _fail("corner orbit: no +-x face was gated on, or a frame had no live face")
+
+    T = poses[-1]
+    live = tuple(fr.name for f, fr in enumerate(face_frames()) if gates[-1, f])
+    print(f"    kernels against their plain versions at frame {n - 1}'s tracked pose, on the "
+          f"volume the corner orbit fused; live faces {list(live)}:", flush=True)
+    if len(live) < 2:
+        _fail(f"corner orbit: frame {n - 1} has live faces {live}, not two")
+    got = check_kernels(state, frames[-1], [("corner", T, live)], params, intr, device)
+    got["resample_face"] = check_composite(state, [("corner", T)], params, intr, device)
+    for key, r in got.items():
+        res[key][0] = max(res[key][0], r[0])
+    del state
+    torch.cuda.empty_cache()
+    return ms_frame
 
 
 def nvidia_smi_line() -> str:
@@ -923,8 +1248,9 @@ def main() -> None:
     t0 = time.perf_counter()
     # one frame more than the orbit: the session resumes from its checkpoint on it
     frames, gt = orbit_frames(n + 1, intr)
-    print(f"    rendered {n + 1} frames {intr.width}x{intr.height} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    c_frames, c_gt = corner_frames(n, intr)
+    print(f"    rendered {n + 1} orbit and {n} corner-orbit frames {intr.width}x{intr.height} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
     if resolve_icp_mode(params, device) != "warped":
         _fail(f"icp_mode={params.icp_mode!r} does not resolve to the warped kernel on {device}")
 
@@ -936,13 +1262,17 @@ def main() -> None:
     torch.cuda.synchronize()
     print("[3] kernels against their plain versions (frame 3, volume fused from "
           "frames 0-2):", flush=True)
+    from kinfu_tpu_torch.ops.facewarp import face_frames
+
+    names = tuple(f.name for f in face_frames())
+    inside = [(f"inside {f.name}", inside_view(f, params)) for f in face_frames()]
     res = {"icp_normal_eqs": check_icp(state, frames[3], params, intr, device)}
-    res.update(check_kernels(state, frames[3], gt[3], params, intr, device))
-    res["resample_face"] = check_composite(state, gt[3], params, intr, device)
-    for key, name, *_ in KERNELS:
-        err, ms, plain_ms, bound_ms, bound_by = res[key]
-        print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), max abs err {err:.3g}  [{smi}]", flush=True)
+    res.update(check_kernels(state, frames[3],
+                             [("orbit", gt[3], names)]
+                             + [(tag, T, (tag.split()[1],)) for tag, T in inside],
+                             params, intr, device, timed=("orbit", "+z")))
+    res["resample_face"] = check_composite(state, [("orbit", gt[3])] + inside, params, intr,
+                                           device, timed="orbit")
     del state
     torch.cuda.empty_cache()
 
@@ -982,27 +1312,22 @@ def main() -> None:
           f"on {smi}", flush=True)
     print(f"    launches in the orbit: {launches}; a frame: "
           f"{ {k: v / n for k, v in sorted(launches.items())} }", flush=True)
+    print(f"    faces gated on a frame: {gate_runs(face_gates(poses, oks, params, intr, device))}",
+          flush=True)
     if ate > ATE_MAX:
         _fail(f"aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
-    for key, name, *_ in KERNELS:
-        if launches.get(key, 0) <= 0:
-            _fail(f"{name} was not launched on the main path")
-    if launches["icp_normal_eqs"] != k1_want:
-        _fail(f"K1 launched {launches['icp_normal_eqs']} times in the orbit, not "
-              f"{sum(params.icp_iters)} iterations x {n} frames x {K1_PER_ITER} = {k1_want}")
-    if launches["resample_face"] != n:
-        _fail(f"K5 launched {launches['resample_face']} times in the orbit, not once a frame")
+    check_launches(launches, n, k1_want, "the orbit")
     if syncs:
         _fail(f"the step synchronised the host {syncs:g} times a frame")
 
     gather = params.replace(icp_mode="gather")
     g_poses, g_oks, _, g_ms, g_state, g_launches = run_orbit(frames[:GATHER_FRAMES], gather,
-                                                             intr, device)
+                                                             intr, device, no_sync=True)
     del g_state
     g_gap = float(np.abs(g_poses - poses[:GATHER_FRAMES]).max())
-    print(f"    gather leg: {GATHER_FRAMES} frames with icp_mode='gather', tracked "
-          f"{int(g_oks[1:].sum())}/{GATHER_FRAMES - 1}; max |pose - warped pose| {g_gap:.3g}; "
-          f"launches {g_launches}", flush=True)
+    print(f"    gather leg: {GATHER_FRAMES} frames with icp_mode='gather', each step under "
+          f"sync-debug mode \"error\", tracked {int(g_oks[1:].sum())}/{GATHER_FRAMES - 1}; "
+          f"max |pose - warped pose| {g_gap:.3g}; launches {g_launches}", flush=True)
     print(f"    frames 2-{GATHER_FRAMES - 1}, median ms/frame (CUDA events): gather "
           f"{float(np.median(g_ms[2:])):.3f}, warped {float(np.median(frame_ms[2:GATHER_FRAMES])):.3f} "
           f"(warped ran first)", flush=True)
@@ -1010,13 +1335,27 @@ def main() -> None:
         _fail("the gather leg lost tracking or launched K1")
     torch.cuda.empty_cache()
 
+    c_ms = run_corner(c_frames, c_gt, params, intr, device, res, k1_want, smi)
+
     print(f"[5] session: {n} frames through KinFuSession (default device)", flush=True)
     s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
     if s_launches["icp_normal_eqs"] != k1_want:
         _fail(f"K1 launched {s_launches['icp_normal_eqs']} times in the session, not {k1_want}")
     torch.cuda.empty_cache()
+    print(f"[5b] CLI: the first {CLI_FRAMES} orbit frames as a bundled dataset under "
+          f"{CLI_OUT.relative_to(REPO)}, through python -m kinfu_tpu_torch run and eval",
+          flush=True)
+    run_cli(frames, gt, poses, params, intr, CLI_OUT, CLI_FRAMES)
+    torch.cuda.empty_cache()
 
+    for key, name, *_ in KERNELS:
+        err, ms, plain_ms, bound_ms, bound_by = res[key]
+        print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), max abs err {err:.3g}, {launches[key] / n:g} launches a frame  "
+              f"[{smi}]", flush=True)
     profile_steps(frames[:n], params, intr, device, args.profile_table, ms_frame)
+    profile_steps(c_frames, params, intr, device, str(Path(args.profile_table).with_suffix(
+        ".corner.txt")), c_ms, n=28, first=20, label="corner orbit (two faces live)", icp=False)
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

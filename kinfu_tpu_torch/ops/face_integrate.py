@@ -45,7 +45,7 @@ from kinfu_tpu_torch.ops import kernels
 from kinfu_tpu_torch.ops.facewarp import (
     FaceFrame,
     FaceSpec,
-    build_face,
+    build_faces,
     default_face_spec,
     face_frames,
     face_geometry,
@@ -375,22 +375,28 @@ def faces_needed(vol2cam: Pose, intr: Intrinsics, margin: float = _FACE_MARGIN) 
     return (comp >= margin * dinf).flatten(1).any(dim=1)
 
 
-def integrate_face(vol: TSDFVolume, frame: FaceFrame, depth_m: torch.Tensor,
-                   col_packed: torch.Tensor, vol2cam: Pose, intr: Intrinsics,
-                   params: KinFuParams, spec: FaceSpec, gate: torch.Tensor) -> None:
-    """One face: build its face stack (K2) and sweep it into the volume
-    (K3), in place; nothing changes where the device flag `gate` is 0
-    (the counterpart of `_sweep_face`, pallas_integrate.py:393-575)."""
+def integrate_faces(vol: TSDFVolume, depth_m: torch.Tensor, col_packed: torch.Tensor,
+                    vol2cam: Pose, intr: Intrinsics, params: KinFuParams, spec: FaceSpec,
+                    gates: torch.Tensor, names: tuple | None = None) -> None:
+    """Build the six face stacks in one launch of K2, then sweep each face
+    into the volume (K3), in place (the counterpart of `_sweep_face`,
+    pallas_integrate.py:393-575, once per face). Nothing changes for a face
+    whose device flag gates[f] is 0; `names`, when given, limits the sweeps
+    to those faces (the stacks follow the gates)."""
     dims_xyz = tuple(reversed(vol.tsdf.shape))
     vs = params.voxel_size
-    A, c_primed = face_geometry(vol2cam, frame, dims_xyz, vs)
-    face_prm = face_params(A, intr, gate, spec)
-    face_range, face_color = build_face(depth_m, col_packed, face_prm, spec)
-    r_max_mm = face_range.max().float()
-    prm = sweep_params(c_primed, primed_voxel_size(frame, vs), spec, params,
-                       r_max_mm, gate, face_prm, intr)
-    dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
-    sweep_face(vol, frame, face_range, face_color, prm, plane_table(spec, prm, dims_p))
+    frames = face_frames()
+    geo = [face_geometry(vol2cam, frame, dims_xyz, vs) for frame in frames]
+    prm6 = torch.stack([face_params(A, intr, gates[f], spec) for f, (A, _) in enumerate(geo)])
+    face_range, face_color, r_max = build_faces(depth_m, col_packed, prm6, spec)
+    for f, frame in enumerate(frames):
+        if names is not None and frame.name not in names:
+            continue
+        prm = sweep_params(geo[f][1], primed_voxel_size(frame, vs), spec, params,
+                           r_max[f].float(), gates[f], prm6[f], intr)
+        dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
+        sweep_face(vol, frame, face_range[f], face_color[f], prm,
+                   plane_table(spec, prm, dims_p))
 
 
 def integrate_warped(
@@ -410,14 +416,12 @@ def integrate_warped(
     runs exactly those sweeps."""
     spec = spec or default_face_spec()
     col_packed = pack_rgb(color_rgb)
-    dev = vol.tsdf.device
     if faces == "auto":
-        gates = faces_needed(vol2cam, intr)
+        integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec,
+                        faces_needed(vol2cam, intr))
     else:
         names = [fr.name for fr in face_frames()]
-        gates = torch.tensor([n in faces for n in names], device=dev)
-    for f, frame in enumerate(face_frames()):
-        if faces == "auto" or frame.name in faces:
-            integrate_face(vol, frame, depth_m, col_packed, vol2cam, intr,
-                           params, spec, gates[f])
+        gates = torch.tensor([n in faces for n in names], device=vol.tsdf.device)
+        integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec, gates,
+                        tuple(faces))
     return vol

@@ -9,11 +9,13 @@ and the packed colour, as a stack of nearest-subsampled mip levels: level
 l occupies rows [row_offsets[l], row_offsets[l] + size>>l), each level's
 row block padded to a multiple of 8.
 
-K2 (`build_face`, csrc/build_face.cu) replaces the Pallas kernel
-`_build_face_kernel` (kinfu_tpu/ops/facewarp.py:285-350): one CUDA thread
-per stack pixel samples the camera frame along the primed ray of its face
-pixel (i<<l, j<<l). `build_face_plain` is its plain PyTorch version, which
-computes exactly what `_build_face_jnp` + `_stack_mips` compute.
+K2 (`build_faces`, csrc/build_face.cu) replaces the Pallas kernel
+`_build_face_kernel` (kinfu_tpu/ops/facewarp.py:285-350): one launch builds
+the stacks of all six faces, a CUDA thread per level-0 face pixel, which
+also writes that pixel's value into every mip level that holds it, and
+reduces each face's largest range on the card. `build_faces_plain` is its
+plain PyTorch version: six `build_face_plain` stacks, each of which computes
+exactly what `_build_face_jnp` + `_stack_mips` compute.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.numerics import rint_index, sqrt32
 from kinfu_tpu_torch.ops import kernels
+
+
+#: the cube faces a frame is fused through
+FACES = 6
 
 
 def _align8(n: int) -> int:
@@ -204,23 +210,15 @@ def shade_sample(depth, col, u, v, inb, inv_fx, inv_fy, cx, cy):
     return r_mm, torch.where(valid, col, torch.zeros_like(col))
 
 
-def build_face_plain(depth_m: torch.Tensor, col_packed: torch.Tensor,
-                     prm: torch.Tensor, spec: FaceSpec):
-    """Plain PyTorch version of K2: (range_mm i16, colour i32), both
-    [stack_rows, size]. Every stack pixel (i, j) of level l samples the ray
-    of face pixel (i<<l, j<<l); the level padding is zero."""
-    h, w = depth_m.shape
-    dev = depth_m.device
-    lvl, row = _row_tables(spec, dev)
-    scale = (1 << lvl).float()[:, None]
-    wl = (spec.size >> lvl).float()[:, None]
-    ii = row.float()[:, None]
-    jj = torch.arange(spec.size, dtype=torch.float32, device=dev)[None, :]
+def _ray_pixels(prm: torch.Tensor, jj: torch.Tensor, ii: torch.Tensor, h: int, w: int):
+    """(u, v, in bounds): the rounded camera pixel of the primed ray through
+    face coordinates (jj, ii) (face pixel numbers, float32), from K2's
+    parameter block."""
     # the face focal and the camera focals are static in the JAX package:
     # divisions by them are multiplications by float32 reciprocals
     inv_f, c = 1.0 / prm[14], prm[15]
-    dpx = (jj * scale - c) * inv_f
-    dpy = (ii * scale - c) * inv_f
+    dpx = (jj - c) * inv_f
+    dpy = (ii - c) * inv_f
     a = prm[:9]
     fx, fy, cx, cy = prm[9], prm[10], prm[11], prm[12]
     dcx = a[0] * dpx + a[1] * dpy + a[2]
@@ -230,9 +228,26 @@ def build_face_plain(depth_m: torch.Tensor, col_packed: torch.Tensor,
     zs = torch.where(in_front, dcz, torch.ones_like(dcz))
     u = rint_index(dcx / zs * fx + cx)
     v = rint_index(dcy / zs * fy + cy)
-    inb = in_front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    return u, v, in_front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+
+
+def build_face_plain(depth_m: torch.Tensor, col_packed: torch.Tensor,
+                     prm: torch.Tensor, spec: FaceSpec):
+    """Plain PyTorch version of K2 for one face: (range_mm i16, colour
+    i32), both [stack_rows, size]. Every stack pixel (i, j) of level l
+    samples the ray of face pixel (i<<l, j<<l); the level padding is zero,
+    and so is the whole stack where the gate prm[13] is 0."""
+    h, w = depth_m.shape
+    dev = depth_m.device
+    lvl, row = _row_tables(spec, dev)
+    scale = (1 << lvl).float()[:, None]
+    wl = (spec.size >> lvl).float()[:, None]
+    ii = row.float()[:, None]
+    jj = torch.arange(spec.size, dtype=torch.float32, device=dev)[None, :]
+    u, v, inb = _ray_pixels(prm, jj * scale, ii * scale, h, w)
     uc = u.clamp(0, w - 1)
     vc = v.clamp(0, h - 1)
+    fx, fy, cx, cy = prm[9], prm[10], prm[11], prm[12]
     r_mm, col = shade_sample(depth_m[vc, uc], col_packed[vc, uc], u, v, inb,
                              1.0 / fx, 1.0 / fy, cx, cy)
     keep = (ii < wl) & (jj < wl) & (prm[13] != 0)
@@ -240,26 +255,62 @@ def build_face_plain(depth_m: torch.Tensor, col_packed: torch.Tensor,
     return range_mm, torch.where(keep, col, torch.zeros_like(col))
 
 
-def build_face(depth_m: torch.Tensor, col_packed: torch.Tensor,
-               prm: torch.Tensor, spec: FaceSpec):
-    """K2: the mip-stacked face image. CPU tensors take the plain version;
-    CUDA tensors launch csrc/build_face.cu."""
+def face_reads(prm: torch.Tensor, spec: FaceSpec, h: int, w: int) -> torch.Tensor:
+    """bool [h, w]: the camera pixels K2 loads (depth and colour) for one
+    face, whatever its gate: each level-0 face pixel loads its ray's rounded
+    pixel, clipped into the frame, and the mips reuse those loads."""
+    n = torch.arange(spec.size, dtype=torch.float32, device=prm.device)
+    u, v, _ = _ray_pixels(prm, n[None, :], n[:, None], h, w)
+    seen = torch.zeros(h * w, dtype=torch.bool, device=prm.device)
+    seen[(v.clamp(0, h - 1) * w + u.clamp(0, w - 1)).reshape(-1)] = True
+    return seen.reshape(h, w)
+
+
+def build_faces_work(prm6: torch.Tensor, spec: FaceSpec, h: int, w: int) -> torch.Tensor:
+    """Device count of the camera pixels K2 loads, 8 bytes each, summed
+    over the faces whose gate is set (`face_reads`)."""
+    total = torch.zeros((), dtype=torch.int64, device=prm6.device)
+    for f in range(FACES):
+        total = total + torch.where(prm6[f, 13] != 0, face_reads(prm6[f], spec, h, w).sum(), 0)
+    return total
+
+
+def build_faces_plain(depth_m: torch.Tensor, col_packed: torch.Tensor,
+                      prm6: torch.Tensor, spec: FaceSpec):
+    """Plain PyTorch version of K2 over the six faces: (range_mm i16
+    [6, stack_rows, size], colour i32 [6, stack_rows, size], r_max i32 [6]),
+    face f built from its parameter block prm6[f] (`face_params`); a face
+    whose gate is 0 gets a zero stack and r_max 0."""
+    stacks = [build_face_plain(depth_m, col_packed, prm6[f], spec) for f in range(FACES)]
+    range_mm = torch.stack([r for r, _ in stacks])
+    return (range_mm, torch.stack([c for _, c in stacks]),
+            range_mm.flatten(1).amax(dim=1).to(torch.int32))
+
+
+def build_faces(depth_m: torch.Tensor, col_packed: torch.Tensor,
+                prm6: torch.Tensor, spec: FaceSpec):
+    """K2: the six faces' mip-stacked images and their largest ranges, in
+    one launch. CPU tensors take the plain version; CUDA tensors launch
+    csrc/build_face.cu, which writes nothing for a face whose gate is 0
+    (its stack is left as allocated and its r_max is 0: the fusion sweep
+    reads the same gate first and never reads such a stack)."""
     if depth_m.device.type == "cpu":
-        return build_face_plain(depth_m, col_packed, prm, spec)
+        return build_faces_plain(depth_m, col_packed, prm6, spec)
     kernels.library()
     h, w = depth_m.shape
-    kernels.check_cuda("build_face", depth_m, col_packed, prm)
+    kernels.check_cuda("build_face", depth_m, col_packed, prm6)
     kernels.check("build_face", depth_m, torch.float32, (h, w))
     kernels.check("build_face", col_packed, torch.int32, (h, w))
-    kernels.check("build_face", prm, torch.float32, (16,))
-    range_mm = torch.empty((spec.stack_rows, spec.size), dtype=torch.int16,
-                           device=depth_m.device)
-    color = torch.empty((spec.stack_rows, spec.size), dtype=torch.int32,
-                        device=depth_m.device)
+    kernels.check("build_face", prm6, torch.float32, (FACES, 16))
+    dev = depth_m.device
+    shape = (FACES, spec.stack_rows, spec.size)
+    range_mm = torch.empty(shape, dtype=torch.int16, device=dev)
+    color = torch.empty(shape, dtype=torch.int32, device=dev)
+    r_max = torch.empty(FACES, dtype=torch.int32, device=dev)
     kernels.launch(
-        "kinfu_build_face",
-        kernels.ptr(depth_m), kernels.ptr(col_packed), kernels.ptr(prm),
-        kernels.ptr(range_mm), kernels.ptr(color),
-        h, w, spec.size, spec.levels,
+        "kinfu_build_faces",
+        kernels.ptr(depth_m), kernels.ptr(col_packed), kernels.ptr(prm6),
+        kernels.ptr(range_mm), kernels.ptr(color), kernels.ptr(r_max),
+        h, w, spec.size, spec.levels, key="build_face",
     )
-    return range_mm, color
+    return range_mm, color, r_max

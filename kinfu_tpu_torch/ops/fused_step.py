@@ -6,9 +6,10 @@ a multi-face chain and a fail branch, L152-217) so that the TPU volume
 crosses one conditional per frame. In eager PyTorch there is no staging to
 save, so the port keeps what the switch computed and drops how:
 
-  - a loop over the six faces; each kernel reads the device flag
-    `faces_needed[f] & good` and leaves its output empty when it is 0, so
-    no Python branch reads the device;
+  - one launch of K2 builds the six face stacks, then a loop over the six
+    faces sweeps them; each kernel reads the device flag
+    `faces_needed[f] & good` and writes nothing for a face where it is 0,
+    so no Python branch reads the device;
   - the raycast's resample and composite over the faces (L132-144) is one
     launch of K5 for all six faces, which also reads those flags;
   - on failure the volume is reset by multiplying it in place with a device
@@ -25,7 +26,7 @@ import torch
 from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
-from kinfu_tpu_torch.ops.face_integrate import faces_needed, integrate_face
+from kinfu_tpu_torch.ops.face_integrate import faces_needed, integrate_faces
 from kinfu_tpu_torch.ops.face_raycast import (
     RaySpec,
     composite_params,
@@ -77,11 +78,8 @@ def fused_update(
     org = torch.where(pose_ok, tt, torch.zeros_like(tt))
 
     gates = faces_needed(vol2cam, intr) & good
-    col_packed = pack_rgb(color_rgb)
+    integrate_faces(vol, depth_m, pack_rgb(color_rgb), vol2cam, intr, params, fspec, gates)
     frames = face_frames()
-    for f, frame in enumerate(frames):
-        integrate_face(vol, frame, depth_m, col_packed, vol2cam, intr, params,
-                       fspec, gates[f])
     # K7, kinfu_tpu/ops/layout_pin.py::pin_natural, pins the switch results'
     # TPU layout at this point; the volume here is updated in place and keeps
     # its layout, so its port is the identity

@@ -48,7 +48,7 @@ _F = ctypes.c_float
 #: C entry points: name -> argtypes (pointers and the stream are c_void_p,
 #: float arguments c_float)
 _SIGNATURES = {
-    "kinfu_build_face": [_P] * 5 + [_I] * 4 + [_P],
+    "kinfu_build_faces": [_P] * 6 + [_I] * 4 + [_P],
     "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P],
     "kinfu_sweep_rays": [_P] * 4 + [_I] * 8 + [_P],
     "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P],

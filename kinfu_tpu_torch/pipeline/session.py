@@ -152,10 +152,10 @@ class KinFuSession:
         )
 
     def save_3d(self, path: str, **kwargs) -> None:
-        raise NotImplementedError(
-            "save_3d needs the PNG writer of io/images.py, which comes with the data "
-            "loaders and the CLI: ROADMAP.md queue 1, item 9. render_3d() returns the "
-            "image as an array.")
+        """Write `render_3d(**kwargs)` as an 8-bit RGB PNG."""
+        from kinfu_tpu_torch.io.images import write_color_png
+
+        write_color_png(path, self.render_3d(**kwargs))
 
     def save_poses(self, path: str) -> None:
         """Write the trajectory in the reference's poses.txt format

@@ -1,6 +1,9 @@
-"""K2's plain version (kinfu_tpu_torch/ops/facewarp.py::build_face_plain)
+"""K2's plain version (kinfu_tpu_torch/ops/facewarp.py::build_face_plain,
+and `build_faces_plain` over the six faces with their largest ranges)
 against the JAX package's `_build_face_jnp` + `_stack_mips`, bit for bit,
-on every cube face for forward, tilted, sideways and backward cameras.
+on every cube face for forward, tilted, sideways and backward cameras; and
+the property K2's one-launch design rests on: every mip level is level 0
+subsampled by 2^l.
 
 The JAX side runs without FMA contraction (tests/torch_jaxref.py), so both
 sides evaluate the same float32 operations; the face geometry is compared
@@ -83,7 +86,7 @@ def test_build_face_plain_bit_exact_all_faces(cases):
     covered = set()
     for pname, fname, depth_m, col, A, (r_ref, c_ref) in cases:
         prm = tfw.face_params(torch.as_tensor(A), INTR, torch.tensor(True), SPEC)
-        r, c = tfw.build_face(torch.as_tensor(depth_m), torch.as_tensor(col), prm, SPEC)
+        r, c = tfw.build_face_plain(torch.as_tensor(depth_m), torch.as_tensor(col), prm, SPEC)
         assert r.dtype == torch.int16 and c.dtype == torch.int32
         assert tuple(r.shape) == (SPEC.stack_rows, SPEC.size)
         np.testing.assert_array_equal(r.numpy(), r_ref, err_msg=f"{pname} {fname} range")
@@ -97,8 +100,95 @@ def test_build_face_plain_bit_exact_all_faces(cases):
 def test_face_gate_off_gives_empty_stack(cases):
     _, _, depth_m, col, A, _ = cases[0]
     prm = tfw.face_params(torch.as_tensor(A), INTR, torch.tensor(False), SPEC)
-    r, c = tfw.build_face(torch.as_tensor(depth_m), torch.as_tensor(col), prm, SPEC)
-    assert not r.any() and not c.any()
+    r, c, r_max = tfw.build_faces_plain(torch.as_tensor(depth_m), torch.as_tensor(col),
+                                        prm.expand(tfw.FACES, -1), SPEC)
+    assert tuple(r.shape) == (tfw.FACES, SPEC.stack_rows, SPEC.size)
+    assert not r.any() and not c.any() and not r_max.any()
+
+
+def _face_inputs(cases, pname):
+    """(depth_m, col, [A per face], [JAX (range, colour) per face]) of a pose."""
+    mine = [c for c in cases if c[0] == pname]
+    assert [c[1] for c in mine] == [fr.name for fr in tfw.face_frames()]
+    return mine[0][2], mine[0][3], [c[4] for c in mine], [c[5] for c in mine]
+
+
+def test_build_faces_matches_jax_on_the_active_faces(cases):
+    """One call over the six faces of a pose that engages two of them (the
+    gates of `faces_needed`): each active face's stack equals the JAX
+    reference's, its r_max equals jnp.max of the reference's range, and each
+    gated-off face is an empty stack with r_max 0."""
+    from kinfu_tpu_torch.ops.face_integrate import faces_needed
+
+    depth_m, col, As, refs = _face_inputs(cases, "tilted")
+    gates = faces_needed(_vol2cam(POSES["tilted"]), INTR)
+    assert int(gates.sum()) == 2, gates
+    prm6 = torch.stack([tfw.face_params(torch.as_tensor(A), INTR, gates[f], SPEC)
+                        for f, A in enumerate(As)])
+    r, c, r_max = tfw.build_faces_plain(torch.as_tensor(depth_m), torch.as_tensor(col), prm6,
+                                        SPEC)
+    assert r.dtype == torch.int16 and c.dtype == torch.int32 and r_max.dtype == torch.int32
+    for f, (fr, (r_ref, c_ref)) in enumerate(zip(tfw.face_frames(), refs)):
+        if bool(gates[f]):
+            np.testing.assert_array_equal(r[f].numpy(), r_ref, err_msg=f"{fr.name} range")
+            np.testing.assert_array_equal(c[f].numpy(), c_ref, err_msg=f"{fr.name} colour")
+            assert int(r_max[f]) == int(jnp.max(jnp.asarray(r_ref))) > 0, fr.name
+        else:
+            assert not r[f].any() and not c[f].any() and int(r_max[f]) == 0, fr.name
+
+
+def test_face_reads_are_what_the_stack_depends_on(cases):
+    """`face_reads`, which K2's bound counts, holds every camera pixel a
+    face's stack reads: poisoning depth and colour everywhere else leaves
+    the stack unchanged, and `build_faces_work` sums it over the faces
+    whose gate is set."""
+    from kinfu_tpu_torch.ops.face_integrate import faces_needed
+
+    depth_m, col, As, _ = _face_inputs(cases, "tilted")
+    gates = faces_needed(_vol2cam(POSES["tilted"]), INTR)
+    prm6 = torch.stack([tfw.face_params(torch.as_tensor(A), INTR, gates[f], SPEC)
+                        for f, A in enumerate(As)])
+    d, c = torch.as_tensor(depth_m), torch.as_tensor(col)
+    want = 0
+    for f in range(tfw.FACES):
+        reads = tfw.face_reads(prm6[f], SPEC, INTR.height, INTR.width)
+        assert 0 < int(reads.sum()) < reads.numel()
+        want += int(reads.sum()) if bool(gates[f]) else 0
+        d2 = torch.where(reads, d, torch.full_like(d, 7.5))
+        c2 = torch.where(reads, c, torch.full_like(c, 0x123456))
+        for a, b in zip(tfw.build_face_plain(d, c, prm6[f], SPEC),
+                        tfw.build_face_plain(d2, c2, prm6[f], SPEC)):
+            assert torch.equal(a, b), f
+    assert int(tfw.build_faces_work(prm6, SPEC, INTR.height, INTR.width)) == want > 0
+
+
+def _subsampled_stack(base: np.ndarray, spec: tfw.FaceSpec) -> np.ndarray:
+    """A stack written the way K2 writes it: level-0 pixel (i, j) also goes
+    to (i >> l, j >> l) of every level l where i and j are multiples of 2^l
+    and that position lies inside the level; everything else is zero."""
+    out = np.zeros((spec.stack_rows, spec.size), base.dtype)
+    for l, off in enumerate(spec.row_offsets):
+        wl = spec.size >> l
+        out[off:off + wl, :wl] = base[::1 << l, ::1 << l][:wl, :wl]
+    return out
+
+
+@pytest.mark.parametrize("pname", list(POSES))
+def test_mip_levels_are_subsamples_of_level_0(cases, pname):
+    """Level l of the stack, whose pixels the plain version computes from
+    their own rays, equals level 0 subsampled by 2^l, on every face of the
+    pose: K2 computes each ray once, at level 0, and writes the mips from
+    it. The JAX reference's stacks hold the same property."""
+    depth_m, col, As, refs = _face_inputs(cases, pname)
+    on = torch.ones(tfw.FACES, dtype=torch.bool)
+    prm6 = torch.stack([tfw.face_params(torch.as_tensor(A), INTR, on[f], SPEC)
+                        for f, A in enumerate(As)])
+    r, c, _ = tfw.build_faces_plain(torch.as_tensor(depth_m), torch.as_tensor(col), prm6, SPEC)
+    n = SPEC.size
+    for f, (r_ref, c_ref) in enumerate(refs):
+        for stack in (r[f].numpy(), c[f].numpy(), r_ref, c_ref):
+            np.testing.assert_array_equal(stack, _subsampled_stack(stack[:n], SPEC))
+    assert r.any()
 
 
 @pytest.mark.parametrize("pname", list(POSES))

@@ -305,9 +305,9 @@ def test_non_cpu_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     meta = dict(device="meta")
     spec = facewarp.FaceSpec(128, 52.0, 2)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        facewarp.build_face(torch.empty((12, 16), **meta),
-                            torch.empty((12, 16), dtype=torch.int32, **meta),
-                            torch.empty(16, **meta), spec)
+        facewarp.build_faces(torch.empty((12, 16), **meta),
+                             torch.empty((12, 16), dtype=torch.int32, **meta),
+                             torch.empty((6, 16), **meta), spec)
     rspec = face_raycast.RaySpec(128, 52.0)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         face_raycast.resample_composite([torch.empty((128, 128), **meta)] * 6,
@@ -327,6 +327,9 @@ def test_port_imports_no_jax():
         import kinfu_tpu_torch.io.poses, kinfu_tpu_torch.io.ply, kinfu_tpu_torch.io.checkpoint
         import kinfu_tpu_torch.pipeline.session, kinfu_tpu_torch.pipeline.viz3d
         import kinfu_tpu_torch.ops.icp_warped, kinfu_tpu_torch.volume.extract
+        import kinfu_tpu_torch.cli, kinfu_tpu_torch.io.images, kinfu_tpu_torch.data
+        import kinfu_tpu_torch.data.icl_nuim, kinfu_tpu_torch.data.sensor
+        import kinfu_tpu_torch.utils.metrics, kinfu_tpu_torch.utils.profiling
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -18,7 +18,7 @@ from kinfu_tpu_torch.data.synthetic import default_test_scene
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
 from kinfu_tpu_torch.ops import face_integrate as tfi
-from kinfu_tpu_torch.ops.facewarp import FaceSpec, face_frames
+from kinfu_tpu_torch.ops.facewarp import FaceSpec, build_face_plain, face_frames
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume
 
 torch.set_num_threads(2)
@@ -146,9 +146,9 @@ def test_sweep_gate_off_leaves_volume():
     depth_m, color = _frame(T)
     prior = _prior(5)
     vol = TSDFVolume(*(torch.as_tensor(a.copy()) for a in prior))
-    tfi.integrate_face(vol, face_frames()[0], torch.as_tensor(depth_m),
-                       tfi.pack_rgb(torch.as_tensor(color)), _vol2cam(T), INTR, PARAMS,
-                       SPEC, torch.tensor(False))
+    tfi.integrate_faces(vol, torch.as_tensor(depth_m), tfi.pack_rgb(torch.as_tensor(color)),
+                        _vol2cam(T), INTR, PARAMS, SPEC, torch.zeros(6, dtype=torch.bool),
+                        names=("+z",))
     for got, want in zip(vol, prior):
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -166,8 +166,8 @@ def test_sweep_counts_the_voxels_it_changes():
     on = torch.tensor(True)
     A, c_p = tfi.face_geometry(_vol2cam(T), frame, PARAMS.volume_dims, PARAMS.voxel_size)
     face_prm = tfi.face_params(A, INTR, on, SPEC)
-    rk, ck = tfi.build_face(torch.as_tensor(depth_m), tfi.pack_rgb(torch.as_tensor(color)),
-                            face_prm, SPEC)
+    rk, ck = build_face_plain(torch.as_tensor(depth_m), tfi.pack_rgb(torch.as_tensor(color)),
+                              face_prm, SPEC)
     prm = tfi.sweep_params(c_p, tfi.primed_voxel_size(frame, PARAMS.voxel_size), SPEC, PARAMS,
                            rk.max().float(), on, face_prm, INTR)
     dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
@@ -206,7 +206,7 @@ def test_plane_footprint_covers_every_update(case):
         vol = create_volume(PARAMS.volume_dims, device="cpu")
         A, c_p = tfi.face_geometry(_vol2cam(T), frame, PARAMS.volume_dims, PARAMS.voxel_size)
         face_prm = tfi.face_params(A, INTR, on, SPEC)
-        rk, ck = tfi.build_face(torch.as_tensor(depth_m), col_packed, face_prm, SPEC)
+        rk, ck = build_face_plain(torch.as_tensor(depth_m), col_packed, face_prm, SPEC)
         prm = tfi.sweep_params(c_p, tfi.primed_voxel_size(frame, PARAMS.voxel_size), SPEC,
                                PARAMS, rk.max().float(), on, face_prm, INTR)
         dims_p = tuple(vol.tsdf.shape[a] for a in frame.axes)
@@ -224,3 +224,41 @@ def test_plane_footprint_covers_every_update(case):
         admitted += int((~shut).sum()) * dims_p[1] * dims_p[2]
     assert covered <= FOOTPRINT_SHARE * admitted, (covered, admitted)
     assert admitted > 0
+
+
+def test_one_launch_stacks_fuse_as_the_per_face_form():
+    """The fused update's K2 form, six stacks from one `build_faces` call
+    with each face's largest range from it, gives the volume bit for bit
+    that the per-face form it replaced gives (one `build_face_plain` stack
+    and its `max()` a face), on a corner-orbit frame where two faces are
+    live, from a random prior."""
+    from kinfu_tpu_torch.data.synthetic import corner_test_scene, yaw_trajectory
+
+    T = yaw_trajectory([_pose(0.0, t=(0.0, 0.0, 0.0))])[0]
+    depth, color = corner_test_scene().render_frame(T, INTR)
+    depth_m = torch.as_tensor((depth * np.float32(0.001)).astype(np.float32))
+    col_packed = tfi.pack_rgb(torch.as_tensor(color))
+    v2c = _vol2cam(T)
+    gates = tfi.faces_needed(v2c, INTR)
+    assert int(gates.sum()) == 2, gates
+    prior = _prior(7)
+    one = TSDFVolume(*(torch.as_tensor(a.copy()) for a in prior))
+    tfi.integrate_faces(one, depth_m, col_packed, v2c, INTR, PARAMS, SPEC, gates)
+
+    per_face = TSDFVolume(*(torch.as_tensor(a.copy()) for a in prior))
+    vs = PARAMS.voxel_size
+    updated = []
+    for f, frame in enumerate(face_frames()):
+        A, c_p = tfi.face_geometry(v2c, frame, PARAMS.volume_dims, vs)
+        face_prm = tfi.face_params(A, INTR, gates[f], SPEC)
+        rk, ck = build_face_plain(depth_m, col_packed, face_prm, SPEC)
+        prm = tfi.sweep_params(c_p, tfi.primed_voxel_size(frame, vs), SPEC, PARAMS,
+                               rk.max().float(), gates[f], face_prm, INTR)
+        dims_p = tuple(per_face.tsdf.shape[a] for a in frame.axes)
+        n_upd, _ = tfi.sweep_face_plain(per_face, frame, rk, ck, prm,
+                                        tfi.plane_table(SPEC, prm, dims_p))
+        updated.append(int(n_upd))
+    for name, a, b in zip(("tsdf", "weight", "colour"), one, per_face):
+        assert torch.equal(a, b), name
+    # both live faces did work
+    assert all((n > 1000) == bool(g) for n, g in zip(updated, gates)), updated

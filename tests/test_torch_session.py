@@ -251,11 +251,19 @@ def test_unported_modes_raise(flag):
         KinFuSession(INTR, PARAMS, device="cpu", **{flag: True})
 
 
-def test_save_3d_raises():
+def test_save_3d_raises(tmp_path):
+    """save_3d writes the 3D view through the port's PNG writer (it raised
+    before the writer existed); a path it cannot write raises as open()
+    does, and a good one reads back as render_3d()'s array."""
+    from kinfu_tpu_torch.io.images import read_color_png
+
     sess = KinFuSession(Intrinsics(16, 12, 10.0, 10.0, 7.5, 5.5),
                         KinFuParams(volume_dims=(16, 16, 16), fused_mode="on"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sess.save_3d("unused.png")
+    with pytest.raises(FileNotFoundError):
+        sess.save_3d(str(tmp_path / "missing" / "view.png"), width=64, height=48)
+    sess.save_3d(str(tmp_path / "view.png"), width=64, height=48)
+    np.testing.assert_array_equal(read_color_png(str(tmp_path / "view.png")),
+                                  sess.render_3d(width=64, height=48))
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
