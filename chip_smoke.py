@@ -41,6 +41,14 @@ Phases; any failure exits non-zero before the result line:
      poses and the faces gated on at each frame (a +-x face must be live on
      some frames); then K2-K5 against their plain versions at its last
      frame, where the +z and +x faces are live;
+  4c. the orbit's 50 frames through kinfu_step with fused_mode="off" (the
+     integrate and raycast dispatchers on K2 + K3 and K4 + face shading +
+     K5, the raycast gated by its cam2vol face flags), each step under
+     sync-debug mode "error": every frame after the first tracks, the
+     aligned ATE is <= 1 mm, the poses are within 1e-4 m of phase 4's fused
+     ones, a frame launches K1 19 times, K2 and K5 once, K3 and K4 six
+     times each; prints the frames where the cam2vol and vol2cam face sets
+     differ;
   5. the same 50 frames through KinFuSession with its default device, numpy
      frames in, the counts set to 0 just before: every frame tracks, the
      aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
@@ -51,15 +59,35 @@ Phases; any failure exits non-zero before the result line:
      run` and `eval` on it as subprocesses on the card: every frame tracks,
      the aligned ATE is <= 1 mm, the PLY has enough points, and a session
      in this process over the same PNGs gives the CLI's poses, launching K2
-     and K5 once a frame;
+     and K5 once a frame; then `run --relocalize` and `run --pose-graph` on
+     the same PNGs (every frame tracks, the aligned ATE is <= 1 mm, the
+     summary line gives the keyframe and closure counts);
+  5c. KinFuSession(relocalize=True) over orbit frames 0-29, two all-zero
+     frames (both fail, each a step with the map kept and a relocalize_step
+     whose ICP fails; the volume's bits and weight count unchanged), frame
+     29 again (recovered within 0.02 m, the record one longer, the path
+     that recovered printed), a direct relocalize_step seeded from the
+     keyframe nearest a pose 5 cm and 3 degrees off frame 29's under
+     sync-debug mode "error" (recovered within 0.02 m; K1 19, K4 12, K5 2,
+     K2 1, K3 6 launches) and on an all-zero frame (the volume's bits
+     unchanged), then frames 30-49 (aligned ATE over the record <= 1 mm);
+  5d. the out-and-back loop of tests/test_mapping.py at this width through
+     KinFuSession(pose_graph=True) beside a plain session: a closure
+     against a non-adjacent keyframe fires, the rebuild launches K2 and K3
+     once per re-fused frame and the warped raycast once, the corrected
+     ATE is <= 1 mm and the map error no worse than the plain session's x
+     1.05; then every keyframe pose shifted 0.12 m and the map rebuilt:
+     the fused sphere sits on the shifted sphere;
   6. profile 8 steps of a fresh run of the orbit: kernel time per frame,
      each port kernel's device time per frame and a launch (per frame, its
      longest launch, the active face, and the others, gated off), and the
      device's idle share (the full table goes to --profile-table); then the
      device time and launches of the ICP of a frame alone, one host call
      against one-iteration launches with the eager finish; then 8 steps of
-     the corner orbit where two faces are live (frames 20-27);
-  7. print one JSON line describing the kernels, then the card, then the
+     the corner orbit where two faces are live (frames 20-27); then 8 steps
+     of the non-fused orbit, and one relocalize_step call;
+  7. print one JSON line describing the kernels (with each kernel's
+     launches on every path this script drives), then the card, then the
      result line.
 
 Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs]
@@ -69,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import subprocess
@@ -130,6 +159,13 @@ GATHER_FRAMES = 10
 SESSION_POSE_TOL = 1e-4
 #: the fewest points the session's cloud of the 512^3 orbit may have
 SESSION_MIN_POINTS = 100_000
+#: the non-fused step's poses against the fused step's (metres)
+NONFUSED_POSE_TOL = 1e-4
+#: relocalization: the recovered translation against ground truth
+#: (metres), the bound of tests/test_mapping.py:221-223
+RELOC_TOL = 0.02
+#: orbit frames the relocalization phase tracks before the loss
+RELOC_FRAMES = 30
 
 #: NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and float32 FLOP/s
 #: outside the tensor cores
@@ -999,6 +1035,22 @@ def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
     if launches.get("build_face") != n or launches.get("resample_face") != n:
         _fail(f"CLI: the session launched K2 {launches.get('build_face')} and K5 "
               f"{launches.get('resample_face')} times in {n} frames, not once a frame each")
+
+    for flag, summary in (("--relocalize", "relocalize: "), ("--pose-graph", "pose graph: ")):
+        tag = flag.lstrip("-")
+        poses_m, metrics_m = out_dir / f"poses_{tag}.txt", out_dir / f"metrics_{tag}.jsonl"
+        stdout = cli("run", "--data", str(data), "--frames", str(n), flag, "--save-poses",
+                     str(poses_m), "--metrics", str(metrics_m), "--quiet")
+        ev = json.loads(cli("eval", "--est", str(poses_m), "--gt", str(out_dir / "gt.txt"))
+                        .strip().splitlines()[-1])
+        rows = [json.loads(line) for line in metrics_m.read_text().splitlines()]
+        tracked = sum(bool(r["tracking_ok"]) for r in rows[1:])
+        lines = [ln for ln in stdout.splitlines() if ln.startswith(summary)]
+        print(f"    run {flag}: tracked {tracked}/{n - 1} after the bootstrap; aligned ATE "
+              f"{ev['ate_rmse_m'] * 1e3:.4f} mm; summary {lines}", flush=True)
+        if len(rows) != n or tracked != n - 1 or ev["ate_rmse_m"] > ATE_MAX or not lines:
+            _fail(f"CLI {flag}: {tracked}/{n - 1} tracked, ATE {ev['ate_rmse_m']}, "
+                  f"summary {lines}")
     return launches
 
 
@@ -1196,6 +1248,381 @@ def run_corner(frames, gt, params, intr, device, res, k1_want: int, smi: str) ->
     return ms_frame
 
 
+def camvol_face_gap(poses, oks, params, intr, device) -> list:
+    """Frames whose raycast face flags (`faces_needed_cam2vol` of the
+    camera-to-volume pose) differ from the fusion's (`faces_needed` of the
+    volume-to-camera pose), from the tracked poses."""
+    import torch
+
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.ops.face_integrate import faces_needed
+    from kinfu_tpu_torch.ops.face_raycast import faces_needed_cam2vol
+
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    differ = []
+    for k, (T, ok) in enumerate(zip(poses, oks)):
+        cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
+        a = faces_needed(compose(inverse(cam), volp), intr)
+        b = faces_needed_cam2vol(compose(inverse(volp), cam), intr)
+        if ok and not torch.equal(a, b):
+            differ.append(k)
+    return differ
+
+
+def check_counts(launches, want: dict, where: str) -> None:
+    """Each kernel of `want` launched exactly that many times in `where`."""
+    for key, n in want.items():
+        if launches.get(key, 0) != n:
+            _fail(f"{where}: {key} launched {launches.get(key, 0)} times, not {n} "
+                  f"(launches {launches})")
+
+
+def run_nonfused(frames, gt, params, intr, device, fused_poses, smi: str):
+    """Phase 4c: the orbit through kinfu_step with fused_mode="off" (the
+    integrate and raycast dispatchers: K2 + K3 and K4 + face shading + K5),
+    each step under sync-debug mode "error". Fails unless every frame after
+    the first tracks, the aligned ATE is <= 1 mm, the poses are within
+    NONFUSED_POSE_TOL of phase 4's fused ones, and a frame launches K1 19
+    times, K2 and K5 once, K3 and K4 six times each. Returns (launches,
+    ms/frame)."""
+    import torch
+
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+
+    n = len(frames)
+    off = params.replace(fused_mode="off")
+    print(f"[4c] non-fused step: the orbit's {n} frames through kinfu_step with "
+          f"fused_mode='off', each step under sync-debug mode \"error\"", flush=True)
+    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames, off, intr, device,
+                                                               no_sync=True)
+    del state
+    _empty_cache(device)
+    ate = ate_rmse(list(poses), gt[:n])
+    gap = float(np.abs(poses - fused_poses[:n]).max())
+    ms_frame = float(np.median(frame_ms[2:])) if frame_ms is not None else float("nan")
+    differ = camvol_face_gap(poses, oks, params, intr, device)
+    print(f"    tracked {int(oks[1:].sum())}/{n - 1} frames after bootstrap; aligned ATE "
+          f"{ate * 1e3:.4f} mm; max |pose - fused pose| {gap:.3g}; inliers at the last frame "
+          f"{int(inliers[-1])}", flush=True)
+    print(f"    {ms_frame:.3f} ms/frame (median of frames 2-{n - 1}, CUDA events) on {smi}; "
+          f"launches a frame: { {k: v / n for k, v in sorted(launches.items())} }", flush=True)
+    print(f"    frames where the raycast's cam2vol face set differs from the fusion's "
+          f"vol2cam set: {differ}", flush=True)
+    if not oks[1:].all() or not np.isfinite(poses).all():
+        _fail(f"non-fused step: tracking failed at frames {np.nonzero(~oks[1:])[0] + 1}")
+    if ate > ATE_MAX:
+        _fail(f"non-fused step: aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+    if gap > NONFUSED_POSE_TOL:
+        _fail(f"non-fused step: poses {gap} from the fused step's")
+    check_counts(launches, {"icp_normal_eqs": 19 * n, "build_face": n, "resample_face": n,
+                            "face_integrate": 6 * n, "sweep_rays": 6 * n}, "the non-fused step")
+    return launches, ms_frame
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty_cache(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def sync_errors(device, what: str):
+    """Sync-debug mode "error" on a CUDA device for the block (nothing on the
+    CPU): a synchronising call in it fails the run, naming `what`."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        _fail(f"{what} synchronised the host with the device: {e}")
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _checksum_equal(vol, before) -> bool:
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(vol, before))
+
+
+def run_relocalize(frames, gt, params, intr, smi: str, **session_kw) -> dict:
+    """Phase 5c: KinFuSession(relocalize=True) on its default device over
+    orbit frames 0..RELOC_FRAMES-1; two all-zero frames (both fail, each a
+    fused step with the map kept and one relocalize_step whose ICP fails,
+    the volume and the weight count bit-unchanged); frame RELOC_FRAMES-1
+    again (recovers within RELOC_TOL, the record grows by one); a direct
+    relocalize_step seeded from the keyframe nearest a pose 5 cm and 3
+    degrees off that frame's, under sync-debug mode "error" (recovers
+    within RELOC_TOL, K1 19, K4 12, K5 2, K2 1 and K3 6 launches), and the
+    same call on an all-zero frame (the volume bit-unchanged); then the
+    orbit's remaining frames track and the aligned ATE over the record is
+    <= 1 mm. Returns the launches of the direct call."""
+    import torch
+
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.pipeline.kinfu import relocalize_step
+    from kinfu_tpu_torch.pipeline.session import KinFuSession
+
+    m = RELOC_FRAMES
+    n = len(gt)
+    print(f"[5c] relocalization: KinFuSession(relocalize=True) over orbit frames 0-{m - 1}, "
+          f"two all-zero frames, frame {m - 1} again, a direct relocalize_step, frames "
+          f"{m}-{n - 1}", flush=True)
+    sess = KinFuSession(intr, params, relocalize=True, **session_kw)
+    dev = sess.device
+    for k in range(m):
+        if not sess.pipeline(frames[k][1], frames[k][0]):
+            _fail(f"relocalization: frame {k} lost tracking before the loss")
+    zero_d, zero_c = np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1])
+    before = [a.clone() for a in sess.state.vol]
+    count = int((sess.state.vol.weight > 0).sum())
+    _sync(dev)
+    kernels.reset_launch_counts()
+    res = [sess.pipeline(zero_c, zero_d) for _ in range(2)]
+    _sync(dev)
+    lost = dict(kernels.LAUNCHES)
+    kept = _checksum_equal(sess.state.vol, before) and \
+        int((sess.state.vol.weight > 0).sum()) == count
+    del before
+    print(f"    {len(sess.keyframes)} keyframes; two all-zero frames: returned {res}, volume "
+          f"bits and the {count} weighted voxels kept: {kept}; launches {lost}", flush=True)
+    if res != [False, False] or not kept:
+        _fail("relocalization: an all-zero frame tracked, or the map changed across the loss")
+    check_counts(lost, {"icp_normal_eqs": 4 * 19, "build_face": 4, "face_integrate": 24,
+                        "sweep_rays": 2 * (6 + 12), "resample_face": 2 * 3},
+                 "the two failed frames (each: a step, then relocalize_step)")
+
+    n_rec = len(sess.pose_record)
+    _sync(dev)
+    kernels.reset_launch_counts()
+    ok = sess.pipeline(frames[m - 1][1], frames[m - 1][0])
+    _sync(dev)
+    again = dict(kernels.LAUNCHES)
+    path = ("relocalize_step" if again.get("icp_normal_eqs") == 38
+            else "the session's own step (the kept model maps)")
+    gap = float(np.linalg.norm(sess.pose_record[-1][:3, 3] - gt[m - 1][:3, 3]))
+    print(f"    frame {m - 1} again: returned {ok}, the record grew {n_rec} -> "
+          f"{len(sess.pose_record)}, recovered translation {gap * 1e3:.4f} mm from ground "
+          f"truth; recovered by {path}", flush=True)
+    if not ok or len(sess.pose_record) != n_rec + 1 or gap > RELOC_TOL:
+        _fail(f"relocalization: frame {m - 1} again returned {ok}, translation gap {gap}")
+
+    a = np.radians(3.0)
+    off = np.array([[np.cos(a), 0, np.sin(a), 0.05], [0, 1, 0, 0],
+                    [-np.sin(a), 0, np.cos(a), 0], [0, 0, 0, 1]])
+    kf = sess.keyframes.nearest(gt[m - 1] @ off)
+    d = torch.as_tensor(frames[m - 1][0], device=dev)
+    c = torch.as_tensor(frames[m - 1][1], device=dev)
+    _sync(dev)
+    kernels.reset_launch_counts()
+    with sync_errors(dev, "relocalize_step"):
+        st, out = relocalize_step(sess.state, d, c, kf.pose, params, intr)
+    _sync(dev)
+    direct = dict(kernels.LAUNCHES)
+    ok = bool(out.tracking_ok)
+    gap = float(np.linalg.norm(out.pose_matrix.cpu().numpy()[:3, 3] - gt[m - 1][:3, 3]))
+    seed_gap = float(np.linalg.norm(kf.pose[:3, 3] - gt[m - 1][:3, 3]))
+    print(f"    direct relocalize_step from keyframe {kf.index} (seed {seed_gap * 1e3:.1f} mm "
+          f"from frame {m - 1}), under sync-debug mode \"error\": ok {ok}, "
+          f"{int(out.icp_inliers)} inliers, translation {gap * 1e3:.4f} mm from ground truth; "
+          f"launches {direct}", flush=True)
+    if not ok or gap > RELOC_TOL:
+        _fail(f"relocalize_step from a keyframe seed: ok {ok}, translation gap {gap}")
+    check_counts(direct, {"icp_normal_eqs": 19, "sweep_rays": 12, "resample_face": 2,
+                          "build_face": 1, "face_integrate": 6}, "relocalize_step")
+    sess.state = st
+    before = [t.clone() for t in st.vol]
+    st2, out2 = relocalize_step(st, torch.zeros_like(d), torch.zeros_like(c), kf.pose,
+                                params, intr)
+    kept = _checksum_equal(st2.vol, before) and not bool(out2.tracking_ok)
+    del before
+    print(f"    the same call on an all-zero frame: ok {bool(out2.tracking_ok)}, volume bits "
+          f"kept: {kept}", flush=True)
+    if not kept:
+        _fail("relocalize_step on an all-zero frame tracked or changed the volume")
+
+    for k in range(m, n):
+        if not sess.pipeline(frames[k][1], frames[k][0]):
+            _fail(f"relocalization: frame {k} lost tracking after the recovery")
+    ref = list(gt[:m]) + [gt[m - 1]] + list(gt[m:n])
+    ate = ate_rmse(sess.pose_record, ref)
+    print(f"    frames {m}-{n - 1} tracked; aligned ATE over the {len(sess.pose_record)} poses "
+          f"of the record {ate * 1e3:.4f} mm [{smi}]", flush=True)
+    if ate > ATE_MAX:
+        _fail(f"relocalization: aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+    del sess, st, st2
+    _empty_cache(dev)
+    return direct
+
+
+def _yaw_x(deg: float, x: float) -> np.ndarray:
+    a = np.deg2rad(deg)
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, 0, s, x], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]], np.float32)
+
+
+def run_pose_graph(params, intr, smi: str, **session_kw) -> dict:
+    """Phase 5d: (1) the out-and-back loop of
+    tests/test_mapping.py::test_loop_closure_corrects_drift at this
+    workload's width, through KinFuSession(pose_graph=True) beside a plain
+    session: a closure against a non-adjacent keyframe fires, the rebuild
+    launches K2 and K3 once per frame it re-fuses and then the warped
+    raycast, the corrected ATE is <= 1 mm and the map error (mean |scene
+    sdf| of the extracted cloud) no worse than the plain session's x 1.05.
+    (2) test_closure_rebuild_realigns_map: every keyframe pose shifted by
+    0.12 m in x and the map rebuilt: the fused sphere sits on the shifted
+    sphere, and > 20% of the rebuilt model normals are valid. Returns the
+    pose-graph session's launches."""
+    import torch
+
+    from kinfu_tpu_torch.data.synthetic import default_test_scene
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.mapping.loop_closure import LoopClosureConfig
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.pipeline.session import KinFuSession
+
+    scene = default_test_scene()
+    n_out = 24
+    traj = [_yaw_x(0.25 * i, 0.005 * i) for i in range(n_out)]
+    traj += [_yaw_x(0.25 * i, 0.005 * i) for i in range(n_out - 2, -1, -1)]
+    frames = [scene.render_frame(T, intr) for T in traj]
+    gt = [np.linalg.inv(traj[0]) @ T for T in traj]
+    cfg = LoopClosureConfig(max_translation=0.04, max_angle_deg=10.0, min_keyframe_gap=3,
+                            kf_min_translation=0.025, kf_min_rotation_deg=4.0,
+                            cooldown_frames=100, min_inlier_frac=0.05)
+    print(f"[5d] pose graph: the out-and-back loop of tests/test_mapping.py ({len(frames)} "
+          f"frames, {intr.width}x{intr.height}, {params.volume_dims[0]}^3) through "
+          f"KinFuSession(pose_graph=True) and a plain session", flush=True)
+    ates, errs, rebuilds = {}, {}, []
+    for pg in (False, True):
+        sess = KinFuSession(intr, params, pose_graph=pg, loop_config=cfg, **session_kw)
+        dev = sess.device
+        if pg:
+            rebuild = sess._rebuild_map
+
+            def counted(*a, _f=rebuild):
+                _sync(dev)
+                start = dict(kernels.LAUNCHES)
+                _f(*a)
+                _sync(dev)
+                rebuilds.append((len(sess.pg_keyframes.keyframes),
+                                 {k: v - start.get(k, 0) for k, v in kernels.LAUNCHES.items()}))
+            sess._rebuild_map = counted
+        _sync(dev)
+        kernels.reset_launch_counts()
+        oks = [sess.pipeline(c, d) for d, c in frames]
+        _sync(dev)
+        launches = dict(kernels.LAUNCHES)
+        if not all(oks):
+            _fail(f"pose graph: tracking failed at frames {[k for k, o in enumerate(oks) if not o]}")
+        ates[pg] = ate_rmse(sess.pose_record, gt[:len(sess.pose_record)])
+        errs[pg] = float(np.abs(scene.sdf(sess.extract_pointcloud())).mean())
+        if pg:
+            closures, n_kf = sess.loop_closures, len(sess.pg_keyframes)
+        del sess
+        _empty_cache(dev)
+    print(f"    plain: aligned ATE {ates[False] * 1e3:.4f} mm, map error {errs[False] * 1e3:.4f} "
+          f"mm; pose graph: aligned ATE {ates[True] * 1e3:.4f} mm, map error "
+          f"{errs[True] * 1e3:.4f} mm; {n_kf} keyframes, closures {closures}", flush=True)
+    print(f"    rebuilds (keyframes stored, launches): {rebuilds}; the session's launches "
+          f"{launches} [{smi}]", flush=True)
+    if not closures or closures[0]["frame"] - closures[0]["keyframe"] <= cfg.min_keyframe_gap:
+        _fail(f"pose graph: no closure against a non-adjacent keyframe fired: {closures}")
+    for n_kf_r, lr in rebuilds:
+        check_counts(lr, {"build_face": n_kf_r + 1, "face_integrate": 6 * (n_kf_r + 1),
+                          "sweep_rays": 6, "resample_face": 1}, "the map rebuild")
+    if ates[True] > ATE_MAX:
+        _fail(f"pose graph: corrected ATE {ates[True] * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+    if errs[True] > errs[False] * 1.05:
+        _fail(f"pose graph: map error {errs[True]} > the plain session's {errs[False]} x 1.05")
+
+    cfg2 = LoopClosureConfig(kf_min_translation=0.002, kf_min_rotation_deg=0.5)
+    traj = []
+    for i in range(4):
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = 0.004 * i
+        traj.append(T)
+    frames = [scene.render_frame(T, intr) for T in traj]
+    sess = KinFuSession(intr, params, pose_graph=True, loop_config=cfg2, **session_kw)
+    if not all(sess.pipeline(c, d) for d, c in frames):
+        _fail("pose graph realignment: tracking failed")
+    if len(sess.pg_keyframes.keyframes) < 2 or any(k.depth is None
+                                                   for k in sess.pg_keyframes.keyframes):
+        _fail("pose graph realignment: fewer than two keyframes with frames")
+    cloud0 = sess.extract_pointcloud().copy()
+    dx = 0.12
+    shift = np.eye(4)
+    shift[0, 3] = dx
+    for kf in sess.pg_keyframes.keyframes:
+        kf.pose = (shift @ kf.pose.astype(np.float64)).astype(np.float32)
+    new_cur = (shift @ sess.pose_record[-1].astype(np.float64)).astype(np.float32)
+    d, c = frames[-1]
+    sess._rebuild_map(torch.as_tensor(d, device=sess.device),
+                      torch.as_tensor(c, device=sess.device), new_cur)
+    cloud1 = sess.extract_pointcloud()
+    sph_c, sph_r = np.array([0.45, -0.25, 1.7]), 0.4
+
+    def on_sphere(pts, centre, band=0.03):
+        return int((np.abs(np.linalg.norm(pts - centre, axis=1) - sph_r) < band).sum())
+
+    n0 = on_sphere(cloud0, sph_c)
+    n_shift, n_orig = on_sphere(cloud1, sph_c + [dx, 0, 0]), on_sphere(cloud1, sph_c)
+    valid = float((sess.state.model_nmaps[0].abs().sum(-1) > 0).float().mean())
+    print(f"    realignment: {len(sess.pg_keyframes.keyframes)} keyframes shifted 0.12 m in x and "
+          f"the map rebuilt: points on the sphere before {n0}; after, on the shifted sphere "
+          f"{n_shift}, on the original {n_orig}; valid model normals {valid:.3f}", flush=True)
+    if not (n0 > 200 and n_shift > 200 and n_shift > 2.5 * n_orig and valid > 0.2):
+        _fail("pose graph realignment: the rebuilt map did not move with the keyframes")
+    del sess
+    _empty_cache(dev)
+    return launches
+
+
+def profile_relocalize(frames, params, intr, device, n: int = 10) -> None:
+    """Phase 6, relocalize_step alone: device time and launches of one call
+    on the state fused from `n` orbit frames, seeded from that state's pose
+    (after one call that warms its caches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kinfu_tpu_torch.geometry.se3 import pose_matrix
+    from kinfu_tpu_torch.pipeline.kinfu import init_state, make_step_fn, relocalize_step
+
+    step = make_step_fn(params, intr, auto_reset=False)
+    state = init_state(params, intr, device=device)
+    dev = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
+           for d, c in frames[:n]]
+    for d, c in dev:
+        state, _ = step(state, d, c)
+    seed = pose_matrix(state.pose).cpu().numpy()
+    d, c = dev[-1]
+    state, _ = relocalize_step(state, d, c, seed, params, intr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, out = relocalize_step(state, d, c, seed, params, intr)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    launches = sum(e.count for e in ev)
+    print(f"    relocalize_step, one call: device {busy:.4f} ms in {launches} launches "
+          f"(ok {bool(out.tracking_ok)})", flush=True)
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1336,6 +1763,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     c_ms = run_corner(c_frames, c_gt, params, intr, device, res, k1_want, smi)
+    nf_launches, nf_ms = run_nonfused(frames[:n], gt, params, intr, device, poses, smi)
 
     print(f"[5] session: {n} frames through KinFuSession (default device)", flush=True)
     s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
@@ -1345,8 +1773,10 @@ def main() -> None:
     print(f"[5b] CLI: the first {CLI_FRAMES} orbit frames as a bundled dataset under "
           f"{CLI_OUT.relative_to(REPO)}, through python -m kinfu_tpu_torch run and eval",
           flush=True)
-    run_cli(frames, gt, poses, params, intr, CLI_OUT, CLI_FRAMES)
+    cli_launches = run_cli(frames, gt, poses, params, intr, CLI_OUT, CLI_FRAMES)
     torch.cuda.empty_cache()
+    reloc_launches = run_relocalize(frames[:n], gt[:n], params, intr, smi)
+    pg_launches = run_pose_graph(params, intr, smi)
 
     for key, name, *_ in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by = res[key]
@@ -1356,12 +1786,20 @@ def main() -> None:
     profile_steps(frames[:n], params, intr, device, args.profile_table, ms_frame)
     profile_steps(c_frames, params, intr, device, str(Path(args.profile_table).with_suffix(
         ".corner.txt")), c_ms, n=28, first=20, label="corner orbit (two faces live)", icp=False)
+    profile_steps(frames[:n], params.replace(fused_mode="off"), intr, device,
+                  str(Path(args.profile_table).with_suffix(".nonfused.txt")), nf_ms,
+                  label="non-fused orbit", icp=False)
+    profile_relocalize(frames, params, intr, device)
 
+    paths = {"orbit": launches, "session": s_launches, "cli_session": cli_launches,
+             "non_fused": nf_launches, "relocalize_step": reloc_launches,
+             "pose_graph_session": pg_launches}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(launches[key]), "max_abs_err": float(res[key][0]),
          "ms": res[key][1], "plain_ms": res[key][2], "bound_ms": res[key][3],
-         "bound_by": res[key][4], "library_ms": None}
+         "bound_by": res[key][4], "library_ms": None,
+         "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()}}
         for key, name, src, rep in KERNELS
     ]}
     print(json.dumps(summary))

@@ -37,9 +37,11 @@ SECONDS = {
     "test_pallas_integrate.py": 188,
     "test_torch_io_cli.py": 129,
     "test_pallas_raycast.py": 127,
+    "test_torch_mapping.py": 120,
     "test_mapping.py": 96,
     "test_torch_raycast.py": 70,
     "test_torch_integrate.py": 69,
+    "test_torch_volume.py": 62,
     "test_torch_session.py": 56,
     "test_session.py": 38,
     "test_pipeline.py": 33,

@@ -9,11 +9,13 @@ Commands:
   bench  per-frame latency benchmark (not ported yet: ROADMAP queue 1, item 7)
 
 `run` drives `KinFuSession` on `--device`: on the card the fused step on
-the CUDA kernels, on the CPU the same step on the kernels' plain versions.
-The port has only the fused step, so the parameters ask for it
-(`fused_mode="on"`, which "auto" also picks on the card). The flags of the
-modes the port lacks (`--streaming`, `--relocalize`, `--pose-graph`) raise,
-naming their ROADMAP item.
+the CUDA kernels, on the CPU the same step on the kernels' plain versions
+(the parameters ask for the fused step, `fused_mode="on"`, which "auto"
+also picks on the card). `--relocalize` keeps the map through a tracking
+loss and re-acquires it from a keyframe; `--pose-graph` closes loops and
+rebuilds the map at the corrected poses; both go through the integrate
+and raycast dispatchers, which on the card launch the same kernels.
+`--streaming` raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -86,10 +88,6 @@ def cmd_run(args) -> int:
 
     if args.streaming:
         raise _not_ported("--streaming (the streaming volume)", "item 11")
-    if args.relocalize:
-        raise _not_ported("--relocalize (keyframes and the relocalizer)", "item 10")
-    if args.pose_graph:
-        raise _not_ported("--pose-graph (loop closure and the pose graph)", "item 10")
     ds, _ = _open_dataset(args.data, args.dataset)
     intr = ds.intrinsics
     scale = intr.depth_scale if intr.depth_scale != 1.0 else 0.001
@@ -100,7 +98,8 @@ def cmd_run(args) -> int:
         start = sess.frame_count - 1
         print(f"resumed from {args.resume} at frame {start}")
     else:
-        sess = KinFuSession(intr, params, device=args.device)
+        sess = KinFuSession(intr, params, device=args.device, relocalize=args.relocalize,
+                            pose_graph=args.pose_graph)
         start = 0
 
     if args.dump_renders:
@@ -133,6 +132,11 @@ def cmd_run(args) -> int:
         if args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             save_checkpoint(args.checkpoint, sess)
 
+    if args.relocalize and sess.keyframes is not None:
+        print(f"relocalize: {len(sess.keyframes)} keyframes")
+    if args.pose_graph and sess.pose_graph:
+        print(f"pose graph: {len(sess.pg_keyframes)} keyframes, "
+              f"{len(sess.loop_closures)} loop closures")
     s = rec.summary()
     if s:
         print(f"done: {s['frames']} frames, {s['tracking_failures']} tracking "
@@ -210,10 +214,9 @@ def main(argv=None) -> int:
     rp.add_argument("--streaming", action="store_true",
                     help="camera-following moving volume (not ported yet: item 11)")
     rp.add_argument("--relocalize", action="store_true",
-                    help="keep the map on tracking loss and relocalize (not ported yet: "
-                         "item 10)")
+                    help="keep the map on tracking loss and relocalize")
     rp.add_argument("--pose-graph", action="store_true",
-                    help="keyframe pose graph with loop closure (not ported yet: item 10)")
+                    help="keyframe pose graph with loop closure")
     rp.add_argument("--dump-renders", default=None, metavar="DIR",
                     help="write phong/normal/color/depth PNGs per frame (main.cpp:77-86)")
     rp.add_argument("--dump-every", type=int, default=5, metavar="N",

@@ -8,9 +8,10 @@ runs on CUDA instead of a TPU:
   - fused_mode / integrate_mode / raycast_mode "auto": the fused step with
     the warped integrate and raycast kernels on a CUDA device whenever
     `ops.facewarp.warp_dims_ok` holds (ops/fused_step.fused_supported).
-    Off CUDA, "auto" selects the non-fused path, which is not ported yet
-    and raises; `fused_mode="on"` runs the fused step with the kernels'
-    plain PyTorch versions on any device.
+    Off CUDA, "auto" selects the non-fused step, as the JAX package does
+    off its TPU: the gather integrate and the "hier" raycast
+    (volume/integrate.py, volume/raycast.py); `fused_mode="on"` runs the
+    fused step with the kernels' plain PyTorch versions on any device.
   - icp_mode "auto": "warped" (the ICP kernel K1) on a CUDA device,
     "gather" on the CPU, as the JAX package picks the warped kernel on its
     accelerator and "gather" on the CPU (kinfu_tpu/tracking/icp.py:139-140).

@@ -95,3 +95,32 @@ def se3_increment(x: torch.Tensor) -> Pose:
     """ICP pose increment from the 6-vector solve result: Rodrigues(x[:3])
     and the translation x[3:6] used directly (icp_registration.cpp:41)."""
     return Pose(rodrigues(x[..., 0:3]).float(), x[..., 3:6].float())
+
+
+def rotvec_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Axis-angle 3-vector from a rotation matrix (log map, rotation only).
+
+    Safe to differentiate at the identity, where arccos((tr-1)/2) has an
+    infinite derivative: theta comes from atan2 on guarded inputs and the
+    small-angle branch is a polynomial, so neither branch yields a NaN
+    (the pose graph differentiates through this). Angles near pi are
+    outside the accurate range (the antisymmetric part vanishes there)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    # antisymmetric part: w = 2 sin(theta) * axis
+    w = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    n2 = (w * w).sum(-1)  # = 4 sin^2(theta)
+    small = n2 < 1e-12
+    n2_safe = torch.where(small, torch.ones_like(n2), n2)
+    sin_t = torch.sqrt(n2_safe) * 0.5
+    theta = torch.atan2(sin_t, cos_t)
+    # theta / (2 sin theta) ~= 0.5 + theta^2/12, theta^2 ~= n2/4 when small
+    scale = torch.where(small, 0.5 + n2 * recip(48.0), theta / (2.0 * sin_t))
+    return w * scale[..., None]

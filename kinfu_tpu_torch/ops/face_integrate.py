@@ -408,20 +408,29 @@ def integrate_warped(
     params: KinFuParams,
     spec: FaceSpec | None = None,
     faces: str | tuple = "auto",
+    gate: torch.Tensor | None = None,
 ) -> TSDFVolume:
     """Fuse one frame into `vol` in place via face warps + sweeps.
 
     faces="auto" runs every face the frustum touches, gated by the device
     flags of `faces_needed` (no host read); an explicit tuple of face names
-    runs exactly those sweeps."""
+    runs exactly those sweeps. `gate`, a device bool, joins every face's
+    flag: where it is False no face writes anything."""
     spec = spec or default_face_spec()
     col_packed = pack_rgb(color_rgb)
+    names = None
     if faces == "auto":
-        integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec,
-                        faces_needed(vol2cam, intr))
+        gates = faces_needed(vol2cam, intr)
     else:
-        names = [fr.name for fr in face_frames()]
-        gates = torch.tensor([n in faces for n in names], device=vol.tsdf.device)
-        integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec, gates,
-                        tuple(faces))
+        names = tuple(faces)
+        gates = pinned_gates(names, vol.tsdf.device)
+    if gate is not None:
+        gates = gates & gate
+    integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec, gates, names)
     return vol
+
+
+@functools.lru_cache(maxsize=None)
+def pinned_gates(names: tuple, device) -> torch.Tensor:
+    """bool [6] on `device`, in face_frames() order: the faces in `names`."""
+    return constant([fr.name in names for fr in face_frames()], torch.bool, device)

@@ -29,6 +29,12 @@ valid mask in the volume frame, as the fused step's composite over the
 faces (kinfu_tpu/ops/fused_step.py:132-144) keeps what the owning face
 gives.
 
+`raycast_warped` is the raycast-only entry of the `raycast` dispatcher
+(pallas_raycast.py:721-826): the sweep and shading of each face and K5's
+composite, gated by the raycast's own face flags, which take the frustum
+directions through cam2vol (`faces_needed_cam2vol`); the fused update
+gates both passes with the fusion's vol2cam flags.
+
 `sweep_rays_plain` and `resample_composite_plain` are their plain PyTorch
 versions; `resample_face_plain` is the one-face resample of the JAX
 package's `_resample_face`, whose arithmetic the composite's plain version
@@ -49,7 +55,7 @@ from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.numerics import recip, rint_index
 from kinfu_tpu_torch.ops import kernels
-from kinfu_tpu_torch.ops.face_integrate import prime
+from kinfu_tpu_torch.ops.face_integrate import _sweep_axes, pinned_gates, prime
 from kinfu_tpu_torch.ops.facewarp import (
     FaceFrame,
     face_frames,
@@ -553,3 +559,72 @@ def sweep_and_shade(tsdf: torch.Tensor, frame: FaceFrame, org_p: torch.Tensor,
     hit, back = sweep_rays(tsdf, frame, ray_params(org_p, vs_p, spec, gate), spec)
     t_f, n_f, _ = face_fields(hit, back, org_p, spec)
     return t_f, n_f
+
+
+#: a face is swept when a sampled frustum direction is within this margin
+#: of its ownership cone (pallas_raycast.py:77, the fusion flags' rule)
+_FACE_MARGIN = 0.75
+
+
+@functools.lru_cache(maxsize=None)
+def _frustum_samples(intr: Intrinsics, device):
+    """(lx [7,7], ly [7,7]) of the 7x7 pixel grid that the face flags
+    sample, as K^-1 [u, v, 1] without its 1."""
+    n = 7
+    u = torch.linspace(0.0, intr.width - 1.0, n)
+    v = torch.linspace(0.0, intr.height - 1.0, n)
+    lx = ((u[None, :] - intr.cx) * recip(intr.fx)).expand(n, n)
+    ly = ((v[:, None] - intr.cy) * recip(intr.fy)).expand(n, n)
+    return constant(lx, torch.float32, device), constant(ly, torch.float32, device)
+
+
+def faces_needed_cam2vol(cam2vol: Pose, intr: Intrinsics,
+                         margin: float = _FACE_MARGIN) -> torch.Tensor:
+    """bool [6] device flags in face_frames() order, the raycast's rule
+    (`_faces_needed`, pallas_raycast.py:810-826): a face is needed when a
+    sampled frustum direction d_vol = R_cam2vol d_cam is within `margin` of
+    its ownership cone. The fusion flags (`face_integrate.faces_needed`)
+    form d_cam R_vol2cam instead; the two agree in exact arithmetic, not
+    always in float32 near the margin, and each step keeps its own."""
+    R, _ = cam2vol
+    lx, ly = _frustum_samples(intr, R.device)
+    # R @ [lx, ly, 1], summed in order as XLA's einsum does
+    d_vol = torch.stack([R[i, 0] * lx + R[i, 1] * ly + R[i, 2] for i in range(3)], dim=-1)
+    dinf = d_vol.abs().amax(dim=-1)
+    D = _sweep_axes(R.device)
+    # each face's axis row has one +-1 entry: its component, exactly
+    comp = torch.einsum("fk,hwk->fhw", D, d_vol)
+    return (comp >= margin * dinf).flatten(1).any(dim=1)
+
+
+def raycast_warped(vol, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
+                   spec: RaySpec | None = None, faces: str | tuple = "auto",
+                   gate: torch.Tensor | None = None):
+    """Cube-face plane-sweep raycast (pallas_raycast.py:721-797):
+    camera-frame (vmap, nmap) [H,W,3], zero where there is no surface.
+
+    faces="auto" sweeps every face that owns a frustum direction, by the
+    cam2vol flags (`faces_needed_cam2vol`); an explicit tuple of face names
+    pins the sweep set. `gate`, a device bool, joins every face's flag.
+    Each face's sweep (K4) and shading run with its device flag, and one
+    launch of K5 composites the six faces by exact ownership; the JAX
+    package's single-face switch, cond chain and multiply-masks are TPU
+    staging and have no counterpart."""
+    if spec is None:
+        size, focal = params.raycast_face
+        spec = RaySpec(size=int(size), focal=float(focal))
+    if faces == "auto":
+        gates = faces_needed_cam2vol(cam2vol, intr)
+    else:
+        gates = pinned_gates(tuple(faces), vol.tsdf.device)
+    if gate is not None:
+        gates = gates & gate
+    prm = composite_params(cam2vol, params)
+    fields = [sweep_and_shade(vol.tsdf, frame, prm[f, 9:12], params, spec, gates[f])
+              for f, frame in enumerate(face_frames())]
+    vertex, normal, valid = resample_composite(
+        [t for t, _ in fields], [n for _, n in fields], prm, gates, intr, spec)
+    R, org = cam2vol
+    m = valid[..., None]
+    # R^T (p - org) and R^T n, as rows times R
+    return torch.where(m, (vertex - org) @ R, 0.0), torch.where(m, normal @ R, 0.0)

@@ -1,12 +1,22 @@
-"""The per-frame pipeline step (port of kinfu_tpu/pipeline/kinfu.py).
+"""The per-frame pipeline step and the relocalization step (port of
+kinfu_tpu/pipeline/kinfu.py).
 
-  measurement pyramid -> ICP -> fused integrate + raycast + reset -> state'
+  measurement pyramid -> ICP -> integrate + raycast + reset -> state'
 
 As in the JAX package, the bootstrap merges into the main path: ICP runs
 every frame (on frame 1 the model maps are zero and its result is
 discarded), and the per-frame choices (bootstrap, tracked, failed) are
 `torch.where` selects on device tensors, so a step never waits for the
 device. The step updates the volume of the state it is given in place.
+
+Two volume updates serve the step: the fused update (`ops/fused_step.py`,
+the JAX package's single `lax.switch`) and the non-fused one, the
+`integrate` and `raycast` dispatchers (`volume/`) in the place of the JAX
+step's `lax.cond(good, fuse, fail)`. Its device flag `good` gates the
+dispatchers instead: a failed frame writes nothing into the volume and
+raycasts nothing, and the reset, where asked for, multiplies the volume
+by the flag as the fused update does. `relocalize_step` keeps the state it
+is given untouched on failure the same way.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ from kinfu_tpu_torch.geometry.se3 import (
 from kinfu_tpu_torch.ops.fused_step import fused_supported, fused_update
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
 from kinfu_tpu_torch.tracking.icp import rigid_icp
-from kinfu_tpu_torch.volume.tsdf import create_volume
+from kinfu_tpu_torch.volume.integrate import integrate
+from kinfu_tpu_torch.volume.raycast import raycast
+from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume
 
 
 def init_state(params: KinFuParams, intr: Intrinsics, device="cuda") -> KinFuState:
@@ -72,6 +84,44 @@ def _where_pose(cond: torch.Tensor, a: Pose, b: Pose) -> Pose:
     return Pose(torch.where(cond, a.R, b.R), torch.where(cond, a.t, b.t))
 
 
+def _measurement(depth_mm: torch.Tensor, params: KinFuParams, intr: Intrinsics):
+    """(depth, vertex, normal) pyramids of a raw depth frame."""
+    return build_measurement_pyramid(
+        depth_mm,
+        intr,
+        pyramid_height=params.pyramid_height,
+        bfilter_kernel_size=params.bfilter_kernel_size,
+        bfilter_color_sigma=params.bfilter_color_sigma,
+        bfilter_spatial_sigma=params.bfilter_spatial_sigma,
+        depth_scale=params.depth_scale,
+        max_dist=params.dfilter_dist,
+        normal_disc_threshold=params.normal_disc_threshold,
+    )
+
+
+def _finite_pose(p: Pose) -> Pose:
+    """`p`, or the identity when any entry is non-finite (a singular ICP
+    solve): the whole matrix is replaced, never single entries."""
+    ok = torch.isfinite(p.R).all() & torch.isfinite(p.t).all()
+    return _where_pose(ok, p, identity_pose(p.R.device))
+
+
+def _update(vol: TSDFVolume, depth_m, color_rgb, vol2cam: Pose, cam2vol: Pose,
+            intr: Intrinsics, params: KinFuParams, good: torch.Tensor,
+            reset_on_fail: bool = True):
+    """The non-fused volume update (kinfu_tpu/pipeline/kinfu.py:167-197):
+    integrate, then raycast the fused volume, both gated by `good`.
+    Returns (vol, vmap, nmap) with the fused update's contract: the maps
+    are zero where `good` is False, and the volume is then reset when
+    reset_on_fail, else kept for a relocalizer."""
+    integrate(vol, depth_m, color_rgb, vol2cam, intr, params, gate=good)
+    rv, rn = raycast(vol, _finite_pose(cam2vol), intr, params, gate=good)
+    if reset_on_fail:
+        for a in vol:
+            a.mul_(good.to(a.dtype))
+    return vol, rv, rn
+
+
 def kinfu_step(
     state: KinFuState,
     depth_mm: torch.Tensor,
@@ -85,30 +135,15 @@ def kinfu_step(
 
     auto_reset=True wipes map and pose on a tracking failure
     (kinectfusion.cpp:97-102); auto_reset=False keeps the state for a
-    relocalizer. Only the fused step is ported, with either ICP mode
-    (`tracking/icp.py::resolve_icp_mode`): other configurations raise
-    NotImplementedError."""
+    relocalizer. The fused update serves the configurations of
+    `fused_supported`, the integrate and raycast dispatchers every other
+    one (on the CPU, "auto" is the gather integrate and the "hier"
+    raycast, as in the JAX package); either ICP mode
+    (`tracking/icp.py::resolve_icp_mode`)."""
     dev = state.vol.tsdf.device
-    if not fused_supported(state.vol.tsdf.shape, params, dev):
-        raise NotImplementedError(
-            "only the fused warped step is ported (fused_mode='on', or 'auto' on "
-            "CUDA, with warped integrate/raycast and warp_dims_ok volume dims; "
-            "either ICP mode); the non-fused step with the gather/hier integrate "
-            "and raycast paths is ROADMAP.md queue 1, items 4 and 5"
-        )
     vol_pose = _volume_pose(params, dev)
 
-    dmaps, vmaps, nmaps = build_measurement_pyramid(
-        depth_mm,
-        intr,
-        pyramid_height=params.pyramid_height,
-        bfilter_kernel_size=params.bfilter_kernel_size,
-        bfilter_color_sigma=params.bfilter_color_sigma,
-        bfilter_spatial_sigma=params.bfilter_spatial_sigma,
-        depth_scale=params.depth_scale,
-        max_dist=params.dfilter_dist,
-        normal_disc_threshold=params.normal_disc_threshold,
-    )
+    dmaps, vmaps, nmaps = _measurement(depth_mm, params, intr)
 
     is_first = state.frame_count == 1
     icp = rigid_icp(vmaps, nmaps, state.model_vmaps, state.model_nmaps, intr, params)
@@ -120,10 +155,14 @@ def kinfu_step(
     vol2cam = compose(inverse(new_pose), vol_pose)
     cam2vol = compose(inverse(vol_pose), new_pose)
 
-    vol_n, rv, rn = fused_update(
-        state.vol, dmaps[0], color_rgb, vol2cam, cam2vol, intr, params, good,
-        reset_on_fail=auto_reset,
-    )
+    if fused_supported(state.vol.tsdf.shape, params, dev):
+        vol_n, rv, rn = fused_update(
+            state.vol, dmaps[0], color_rgb, vol2cam, cam2vol, intr, params, good,
+            reset_on_fail=auto_reset,
+        )
+    else:
+        vol_n, rv, rn = _update(state.vol, dmaps[0], color_rgb, vol2cam, cam2vol,
+                                intr, params, good, reset_on_fail=auto_reset)
     mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
     mv = tuple(torch.where(is_first, a, b) for a, b in zip(vmaps, mv))
     mn = tuple(torch.where(is_first, a, b) for a, b in zip(nmaps, mn))
@@ -162,3 +201,56 @@ def make_step_fn(
     """The step with its configuration bound (the JAX package jits it; the
     port runs eagerly)."""
     return functools.partial(kinfu_step, params=params, intr=intr, auto_reset=auto_reset)
+
+
+def relocalize_step(
+    state: KinFuState,
+    depth_mm: torch.Tensor,
+    color_rgb: torch.Tensor,
+    seed_pose,
+    params: KinFuParams,
+    intr: Intrinsics,
+) -> Tuple[KinFuState, StepOutput]:
+    """One relocalization attempt against the kept map
+    (kinfu_tpu/pipeline/kinfu.py:235-302).
+
+    Raycasts the volume from `seed_pose` (a 4x4 world-from-camera guess,
+    typically the nearest keyframe's, mapping/keyframes.py; a tensor on the
+    state's device or a host array), runs ICP of the current measurement
+    against that prediction, and on success re-enters normal tracking:
+    integrate at the recovered pose and fresh model maps. On failure the
+    state is left as it was: the ICP flag gates the integrate and the
+    raycast, and selects pose, maps and frame count, so nothing waits for
+    the device. The volume is updated in place."""
+    dev = state.vol.tsdf.device
+    vol_pose = _volume_pose(params, dev)
+    if not isinstance(seed_pose, torch.Tensor):
+        seed_pose = constant(seed_pose, torch.float32, dev)
+    seed = pose_from_matrix(seed_pose.to(device=dev, dtype=torch.float32))
+
+    dmaps, vmaps, nmaps = _measurement(depth_mm, params, intr)
+
+    # model prediction from the seed pose
+    rv, rn = raycast(state.vol, compose(inverse(vol_pose), seed), intr, params)
+    mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
+    icp = rigid_icp(vmaps, nmaps, mv, mn, intr, params)
+    ok = icp.ok
+
+    new_pose = compose(seed, icp.pose)
+    vol2cam = compose(inverse(new_pose), vol_pose)
+    integrate(state.vol, dmaps[0], color_rgb, vol2cam, intr, params, gate=ok)
+    cam2vol = compose(inverse(vol_pose), new_pose)
+    rv2, rn2 = raycast(state.vol, _finite_pose(cam2vol), intr, params, gate=ok)
+    mv2, mn2 = _model_pyramid(rv2, rn2, params.pyramid_height)
+
+    pose_n = _where_pose(ok, new_pose, state.pose)
+    new_state = KinFuState(
+        vol=state.vol,
+        pose=pose_n,
+        model_vmaps=tuple(torch.where(ok, a, b) for a, b in zip(mv2, state.model_vmaps)),
+        model_nmaps=tuple(torch.where(ok, a, b) for a, b in zip(mn2, state.model_nmaps)),
+        frame_count=torch.where(ok, state.frame_count + 1, state.frame_count),
+    )
+    out = StepOutput(pose_matrix=pose_matrix(pose_n), tracking_ok=ok,
+                     icp_inliers=icp.num_inliers)
+    return new_state, out

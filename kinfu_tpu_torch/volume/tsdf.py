@@ -64,3 +64,11 @@ def pack_rgb(rgb: torch.Tensor) -> torch.Tensor:
     g = rgb[..., 1].to(torch.int32)
     b = rgb[..., 2].to(torch.int32)
     return (r << 16) | (g << 8) | b
+
+
+def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
+    """[...] packed int -> [..., 3] float32 channels in [0, 255]."""
+    r = (packed >> 16) & 0xFF
+    g = (packed >> 8) & 0xFF
+    b = packed & 0xFF
+    return torch.stack([r, g, b], dim=-1).float()

@@ -271,6 +271,11 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 def test_non_fused_step_raises():
+    """The non-fused step runs where it raised before the slice that ported
+    it: fused_mode="off", "auto" off CUDA and a "hier" raycast each
+    bootstrap; so does the fused step with warped ICP (K1's plain version
+    on the CPU; 128^3 is the least cube `warp_dims_ok` admits, a 128 px
+    raycast face the least face)."""
     from kinfu_tpu_torch.pipeline.kinfu import init_state, kinfu_step
 
     intr = TIntr(16, 12, 10.0, 10.0, 7.5, 5.5)
@@ -278,18 +283,13 @@ def test_non_fused_step_raises():
     color = torch.zeros((12, 16, 3), dtype=torch.uint8)
     for params in (tcfg.tiny_params(16).replace(fused_mode="off"),
                    tcfg.tiny_params(16),  # "auto" off CUDA
-                   tcfg.tiny_params(128).replace(fused_mode="on", raycast_mode="hier")):
-        state = init_state(params, intr, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kinfu_step(state, depth, color, params, intr)
-    # the fused step takes warped ICP (K1's plain version on the CPU); 128^3
-    # is the least cube `warp_dims_ok` admits, a 128 px raycast face the
-    # least face
-    params = tcfg.tiny_params(128).replace(fused_mode="on", icp_mode="warped",
-                                           raycast_face=(128, 52.2))
-    state, out = kinfu_step(init_state(params, intr, device="cpu"), depth, color, params, intr)
-    assert bool(out.tracking_ok) and int(out.icp_inliers) == 0
-    assert int(state.frame_count) == 2
+                   tcfg.tiny_params(128).replace(fused_mode="on", raycast_mode="hier"),
+                   tcfg.tiny_params(128).replace(fused_mode="on", icp_mode="warped",
+                                                 raycast_face=(128, 52.2))):
+        state, out = kinfu_step(init_state(params, intr, device="cpu"), depth, color,
+                                params, intr)
+        assert bool(out.tracking_ok) and int(out.icp_inliers) == 0
+        assert int(state.frame_count) == 2
 
 
 def test_non_cpu_tensor_without_kernel_library_raises(monkeypatch, tmp_path):

@@ -246,9 +246,22 @@ def test_reset_bootstraps_again(run):
 
 @pytest.mark.parametrize("flag", ["relocalize", "streaming", "pose_graph"])
 def test_unported_modes_raise(flag):
-    item = "item 11" if flag == "streaming" else "item 10"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        KinFuSession(INTR, PARAMS, device="cpu", **{flag: True})
+    """The streaming volume is not ported and raises, naming its ROADMAP
+    item, also beside relocalization (as JAX raises that pair); the
+    relocalize and pose_graph modes, ported, run: two frames track, and
+    their keyframe stores fill."""
+    if flag == "streaming":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
+            KinFuSession(INTR, PARAMS, device="cpu", streaming=True)
+        with pytest.raises(ValueError, match="streaming \\+ relocalize"):
+            KinFuSession(INTR, PARAMS, device="cpu", streaming=True, relocalize=True)
+        return
+    frames, _ = _frames(2)
+    sess = KinFuSession(INTR, PARAMS, device="cpu", **{flag: True})
+    assert all(sess.pipeline(c, d) for d, c in frames)
+    assert len(sess.pose_record) == 2
+    store = sess.keyframes if flag == "relocalize" else sess.pg_keyframes
+    assert len(store) >= 1
 
 
 def test_save_3d_raises(tmp_path):
@@ -280,3 +293,21 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_streaming_checkpoint_raises(tmp_path):
+    """A streaming session's checkpoint needs the streaming volume: loading
+    one raises, naming its ROADMAP item."""
+    import json
+
+    sess = KinFuSession(Intrinsics(16, 12, 10.0, 10.0, 7.5, 5.5),
+                        KinFuParams(volume_dims=(16, 16, 16)), device="cpu")
+    path = tmp_path / "s.npz"
+    checkpoint.save_checkpoint(str(path), sess)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays.pop("meta")))
+    meta["streaming"] = True
+    np.savez(path, meta=json.dumps(meta), **arrays)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
+        checkpoint.load_checkpoint(str(path), device="cpu")

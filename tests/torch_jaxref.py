@@ -18,6 +18,13 @@ child process: the JAX import and the compiles are paid once per call.
 the port meanwhile; `Job.result()` waits for it. The child keeps XLA on
 one thread: the test workers already share the cores.
 
+XLA's algebraic simplifier also rewrites `a / sqrt(b)` into
+`a * rsqrt(b)`. With AVX, XLA:CPU computes rsqrt from the processor's
+reciprocal square root estimate and one Newton step, which is off by an
+ulp on ~20% of inputs and is not reproducible elsewhere; with at most
+SSE4.2 it computes 1 / sqrt(b), rounding twice. A reference whose result
+hangs on such a quotient runs with `isa="SSE4_2"`.
+
     python tests/torch_jaxref.py DIR   # the child: DIR/in.pkl -> DIR/out.pkl
 """
 
@@ -34,14 +41,14 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
-XLA_FLAGS = "--xla_cpu_max_isa=AVX --xla_cpu_multi_thread_eigen=false"
+XLA_FLAGS = "--xla_cpu_max_isa={isa} --xla_cpu_multi_thread_eigen=false"
 
 
 class Job:
     """A running child process evaluating a list of references."""
 
-    def __init__(self, calls):
-        env = dict(os.environ, XLA_FLAGS=XLA_FLAGS, JAX_PLATFORMS="cpu")
+    def __init__(self, calls, isa: str = "AVX"):
+        env = dict(os.environ, XLA_FLAGS=XLA_FLAGS.format(isa=isa), JAX_PLATFORMS="cpu")
         self._dir = tempfile.TemporaryDirectory()
         with open(Path(self._dir.name) / "in.pkl", "wb") as f:
             pickle.dump(list(calls), f)
@@ -63,15 +70,15 @@ class Job:
             self._dir.cleanup()
 
 
-def start(calls) -> Job:
+def start(calls, isa: str = "AVX") -> Job:
     """Start evaluating [(reference name, kwargs), ...] in a child process
-    whose XLA emits no FMA."""
-    return Job(calls)
+    whose XLA emits no FMA and uses at most the instruction set `isa`."""
+    return Job(calls, isa)
 
 
-def run(calls, timeout: float = 900.0):
+def run(calls, timeout: float = 900.0, isa: str = "AVX"):
     """[(reference name, kwargs), ...] -> [result, ...]."""
-    return start(calls).result(timeout)
+    return start(calls, isa).result(timeout)
 
 
 # ---- references (run in the child) ---------------------------------------
@@ -277,34 +284,183 @@ def extract(tsdf, weight, color, params_kw, max_points):
     return _np((plain(vol), colored(vol)))
 
 
-def kinfu_track(params_kw, intr, sequences):
+def _state_np(st, o=None):
+    """A JAX KinFuState (and StepOutput) as the numpy fields of
+    `state_from_numpy` / `state_to_numpy`."""
+    from kinfu_tpu.geometry.se3 import pose_matrix
+
+    d = dict(
+        tsdf=np.asarray(st.vol.tsdf), weight=np.asarray(st.vol.weight),
+        color=np.asarray(st.vol.color), pose=np.asarray(pose_matrix(st.pose)),
+        model_vmaps=[np.asarray(m) for m in st.model_vmaps],
+        model_nmaps=[np.asarray(m) for m in st.model_nmaps],
+        frame_count=np.asarray(st.frame_count),
+    )
+    if o is not None:
+        d.update(pose_matrix=np.asarray(o.pose_matrix), tracking_ok=bool(o.tracking_ok),
+                 icp_inliers=int(o.icp_inliers))
+    return d
+
+
+def _state_jax(d):
+    """The inverse of `_state_np`."""
+    import jax.numpy as jnp
+
+    from kinfu_tpu.geometry.se3 import pose_from_matrix
+    from kinfu_tpu.pipeline.state import KinFuState
+    from kinfu_tpu.volume.tsdf import TSDFVolume
+
+    return KinFuState(
+        vol=TSDFVolume(jnp.asarray(d["tsdf"]), jnp.asarray(d["weight"]),
+                       jnp.asarray(d["color"])),
+        pose=pose_from_matrix(jnp.asarray(d["pose"], jnp.float32)),
+        model_vmaps=tuple(jnp.asarray(m) for m in d["model_vmaps"]),
+        model_nmaps=tuple(jnp.asarray(m) for m in d["model_nmaps"]),
+        frame_count=jnp.asarray(d["frame_count"], jnp.int32),
+    )
+
+
+def kinfu_track(params_kw, intr, sequences, auto_reset=True):
     """pipeline.kinfu: init_state + one jitted step over each frame sequence;
     returns, per sequence and frame, the state as numpy fields and the
     step's outputs."""
     import jax.numpy as jnp
 
     from kinfu_tpu.config import KinFuParams
-    from kinfu_tpu.geometry.se3 import pose_matrix
     from kinfu_tpu.pipeline.kinfu import init_state, make_step_fn
 
     params = KinFuParams(**dict(params_kw))
-    step = make_step_fn(params, _intr(intr), donate=False)
+    step = make_step_fn(params, _intr(intr), donate=False, auto_reset=auto_reset)
     out = []
     for frames in sequences:
         st, seq = init_state(params, _intr(intr)), []
         for d, c in frames:
             st, o = step(st, jnp.asarray(d), jnp.asarray(c))
-            seq.append(dict(
-                tsdf=np.asarray(st.vol.tsdf), weight=np.asarray(st.vol.weight),
-                color=np.asarray(st.vol.color), pose=np.asarray(pose_matrix(st.pose)),
-                model_vmaps=[np.asarray(m) for m in st.model_vmaps],
-                model_nmaps=[np.asarray(m) for m in st.model_nmaps],
-                frame_count=np.asarray(st.frame_count),
-                pose_matrix=np.asarray(o.pose_matrix), tracking_ok=bool(o.tracking_ok),
-                icp_inliers=int(o.icp_inliers),
-            ))
+            seq.append(_state_np(st, o))
         out.append(seq)
     return out
+
+
+def relocalize_step(state, depth, color, seed_pose, params_kw, intr):
+    """pipeline.kinfu.relocalize_step, jitted as the session runs it, on a
+    state given as numpy fields: (state', outputs) as numpy fields."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.pipeline.kinfu import relocalize_step as fn
+
+    params = KinFuParams(**dict(params_kw))
+    step = jax.jit(functools.partial(fn, params=params, intr=_intr(intr)))
+    st, o = step(_state_jax(state), jnp.asarray(depth), jnp.asarray(color),
+                 jnp.asarray(seed_pose, jnp.float32))
+    return _state_np(st, o)
+
+
+def integrate(tsdf, weight, color, depth_m, color_rgb, R, t, intr, params_kw):
+    """volume.integrate.integrate (the dispatcher; gather off the TPU),
+    jitted: (tsdf, weight, colour)."""
+    import jax
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.geometry.se3 import Pose
+    from kinfu_tpu.volume.integrate import integrate as fn
+    from kinfu_tpu.volume.tsdf import TSDFVolume
+
+    params = KinFuParams(**dict(params_kw))
+    v = jax.jit(lambda *a: fn(TSDFVolume(*a[:3]), a[3], a[4], Pose(a[5], a[6]),
+                              _intr(intr), params))(
+        tsdf, weight, color, depth_m, color_rgb, R, t)
+    return _np((v.tsdf, v.weight, v.color))
+
+
+def raycast(tsdf, R, t, intr, params_kw):
+    """volume.raycast.raycast (the dispatcher), jitted: (vmap, nmap)."""
+    import jax
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.geometry.se3 import Pose
+    from kinfu_tpu.volume.raycast import raycast as fn
+    from kinfu_tpu.volume.tsdf import TSDFVolume
+
+    params = KinFuParams(**dict(params_kw))
+    return _np(jax.jit(lambda a, R, t: fn(TSDFVolume(a, a, a), Pose(R, t), _intr(intr),
+                                          params))(tsdf, R, t))
+
+
+def raycast_parts(tsdf, R, t, intr, params_kw, max_steps, chunk):
+    """The pieces of volume/raycast.py, each jitted on its own, for the
+    camera pose (R, t): camera_rays, ray_aabb, build_occupancy, march,
+    march_hier, march_chunked (`max_steps`, `chunk`), shade on the march's
+    hits, and trilinear at the hits' vertices."""
+    import jax
+    import jax.numpy as jnp
+
+    import importlib
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.geometry.se3 import Pose
+
+    # the package's __init__ binds the name `raycast` to the function
+    rc = importlib.import_module("kinfu_tpu.volume.raycast")
+    params = KinFuParams(**dict(params_kw))
+    dims = tsdf.shape
+    vsx, vsy, vsz = params.voxel_size
+    step = params.raycast_step_voxels * vsx
+    inv_vs = jnp.array([1.0 / vsx, 1.0 / vsy, 1.0 / vsz], dtype=jnp.float32)
+    org, dirs = jax.jit(lambda R, t: rc.camera_rays(Pose(R, t), _intr(intr)))(R, t)
+    box_max = jnp.array(params.volume_range, dtype=jnp.float32)
+    tnear, tfar = jax.jit(rc.ray_aabb)(org, dirs, box_max)
+    t_start = jnp.maximum(tnear, 0.0) + step
+    occ = jax.jit(rc.build_occupancy)(tsdf)
+    m = jax.jit(lambda a, o, d, s, e: rc.march(a, dims, 0, o, d, s, e, step, inv_vs))(
+        tsdf, org, dirs, t_start, tfar)
+    h = jax.jit(lambda a, c, o, d, s, e: rc.march_hier(a, c, o, d, s, e, step, inv_vs))(
+        tsdf, occ, org, dirs, t_start, tfar)
+    c = jax.jit(lambda a, o, d, s, e: rc.march_chunked(a, dims, 0, o, d, s, e, step, inv_vs,
+                                                       max_steps, chunk))(
+        tsdf, org, dirs, t_start, tfar)
+    hit = (m.hit_t < m.back_t) & (m.hit_t < rc._INF)
+    vertex, n, valid = jax.jit(lambda a, o, d, ht, hm: rc.shade(
+        a, dims, 0, o, d, ht, hm, params.voxel_size))(tsdf, org, dirs, m.hit_t, hit)
+    tri = jax.jit(lambda a, p: rc.trilinear(a.reshape(-1), dims, 0, dims[0], p))(
+        tsdf, vertex * inv_vs)
+    return _np(dict(org=org, dirs=dirs, tnear=tnear, tfar=tfar, t_start=t_start, occ=occ,
+                    march=tuple(m), hier=tuple(h), chunked=tuple(c), vertex=vertex,
+                    normal=n, valid=valid, tri=tri))
+
+
+def faces_needed_cam2vol(rotations, intr):
+    """pallas_raycast._faces_needed of each cam2vol rotation, jitted:
+    [n, 6] bool in face_frames() order."""
+    import jax
+    import jax.numpy as jnp
+
+    from kinfu_tpu.geometry.se3 import Pose
+    from kinfu_tpu.ops.facewarp import face_frames
+    from kinfu_tpu.ops.pallas_raycast import _faces_needed
+
+    names = [fr.name for fr in face_frames()]
+    fn = jax.jit(lambda R: jnp.stack([
+        v for _, v in sorted(_faces_needed(Pose(R, jnp.zeros(3)), _intr(intr)).items(),
+                             key=lambda kv: names.index(kv[0]))]))
+    return np.stack([np.asarray(fn(jnp.asarray(R, jnp.float32))) for R in rotations])
+
+
+def raycast_warped(tsdf, R, t, intr, params_kw, faces):
+    """pallas_raycast.raycast_warped (interpret), jitted: (vmap, nmap)."""
+    import jax
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.geometry.se3 import Pose
+    from kinfu_tpu.ops.pallas_raycast import raycast_warped as fn
+    from kinfu_tpu.volume.tsdf import TSDFVolume
+
+    params = KinFuParams(**dict(params_kw))
+    return _np(jax.jit(lambda a, R, t: fn(TSDFVolume(a, a, a), Pose(R, t), _intr(intr),
+                                          params, interpret=True, faces=faces))(tsdf, R, t))
 
 
 def _child(d: str) -> None:
