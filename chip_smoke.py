@@ -78,6 +78,32 @@ Phases; any failure exits non-zero before the result line:
      ATE is <= 1 mm and the map error no worse than the plain session's x
      1.05; then every keyframe pose shifted 0.12 m and the map rebuilt:
      the fused sphere sits on the shifted sphere;
+  4d. (run after 5d, before the profiler) the sharded step on the one card.
+     In this process, the shard forms against their plain versions at the
+     main path's shapes, on the 512^3 volume of frames 0-2 cut into 4 Z
+     slabs and 4 Y slabs: K2 and K3 on each slab with its origin folded
+     into the pose, bit for bit (the Y slabs' +-x faces in the (2, 1, 0)
+     frame), K4 on each halo-padded slab (hit bits equal, back events by
+     phase 3's rule) and the ranks' minimum against the unsharded K4 (at
+     most 0.1% of a face's rays may differ), on the orbit view and the six
+     centre views; K1's one-iteration form on each of 4 row shards of every
+     level, and their sum against the whole; CUDA-event times of the shard
+     forms beside the unsharded launches, and their bounds. Then 4 ranks
+     on the card (gloo, "spawn" processes that load the kernels phase 2
+     built) run the orbit's 50 frames Z-sharded and Y-sharded through the
+     fused sharded step, and 10 frames Z-sharded with fused_mode="off":
+     every frame after the first tracks, the aligned ATE is <= 1 mm, each
+     rank launches K1 19 times a frame, K2 and K5 once, K3 and K4 six
+     times; each leg's step of frames 10, 30 and 45 from phase 4's state of
+     the frame before gives phase 4's pose within 1e-6 m and its ICP inlier
+     count within 0.01%, and the gathered volume and model map of frame 30
+     agree with phase 4's (tests/test_distributed.py's tolerances); prints
+     the free-running poses' gap to phase 4's (4c's), the collectives and
+     bytes a frame and the host syncs of steps 2-4 under sync-debug
+     "warn" (and, with --profile-table, rank 0's kernels under
+     torch.profiler). Then `python -m
+     kinfu_tpu_torch sweep --devices 2` over two copies of phase 5b's PNGs:
+     each sequence's poses are phase 5b's session's;
   6. profile 8 steps of a fresh run of the orbit: kernel time per frame,
      each port kernel's device time per frame and a launch (per frame, its
      longest launch, the active face, and the others, gated off), and the
@@ -86,9 +112,9 @@ Phases; any failure exits non-zero before the result line:
      against one-iteration launches with the eager finish; then 8 steps of
      the corner orbit where two faces are live (frames 20-27); then 8 steps
      of the non-fused orbit, and one relocalize_step call;
-  7. print one JSON line describing the kernels (with each kernel's
-     launches on every path this script drives), then the card, then the
-     result line.
+  7. print one JSON line describing the kernels and the shard forms (with
+     each kernel's launches on every path this script drives, the sharded
+     ones summed over the ranks), then the card, then the result line.
 
 Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs]
 """
@@ -959,7 +985,7 @@ def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
     0, every frame after the bootstrap tracks, the aligned ATE is <= 1 mm,
     the PLY holds at least SESSION_MIN_POINTS points, the session's poses
     are the CLI's within SESSION_POSE_TOL, and the session launched K2 and
-    K5 once a frame. Returns the session's launches."""
+    K5 once a frame. Returns the session's launches and pose record."""
     import shutil
 
     import torch
@@ -1051,7 +1077,7 @@ def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
         if len(rows) != n or tracked != n - 1 or ev["ate_rmse_m"] > ATE_MAX or not lines:
             _fail(f"CLI {flag}: {tracked}/{n - 1} tracked, ATE {ev['ate_rmse_m']}, "
                   f"summary {lines}")
-    return launches
+    return launches, list(sess.pose_record)
 
 
 def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
@@ -1284,7 +1310,7 @@ def run_nonfused(frames, gt, params, intr, device, fused_poses, smi: str):
     the first tracks, the aligned ATE is <= 1 mm, the poses are within
     NONFUSED_POSE_TOL of phase 4's fused ones, and a frame launches K1 19
     times, K2 and K5 once, K3 and K4 six times each. Returns (launches,
-    ms/frame)."""
+    ms/frame, poses)."""
     import torch
 
     from kinfu_tpu_torch.eval.ate import ate_rmse
@@ -1316,7 +1342,7 @@ def run_nonfused(frames, gt, params, intr, device, fused_poses, smi: str):
         _fail(f"non-fused step: poses {gap} from the fused step's")
     check_counts(launches, {"icp_normal_eqs": 19 * n, "build_face": n, "resample_face": n,
                             "face_integrate": 6 * n, "sweep_rays": 6 * n}, "the non-fused step")
-    return launches, ms_frame
+    return launches, ms_frame, poses
 
 
 def _sync(device) -> None:
@@ -1623,6 +1649,680 @@ def profile_relocalize(frames, params, intr, device, n: int = 10) -> None:
           f"(ok {bool(out.tracking_ok)})", flush=True)
 
 
+# ---- phase 4d: the sharded step on the one card ---------------------------
+
+#: ranks of phase 4d, all on the one card (gloo stages CUDA tensors through
+#: the host; NCCL refuses two ranks on one card)
+SHARD_RANKS = 4
+#: frames of the non-fused sharded leg
+SHARD_NONFUSED_FRAMES = 10
+#: the gathered sharded volume and model maps against phase 4's, with
+#: tests/test_distributed.py's tolerances: TSDF mismatch above 2e-2 on under
+#: 0.2% of voxels, weights differing on under 0.2%, the model maps' 99th
+#: percentile gap under 2e-3 m
+SHARD_TSDF_TOL = 2e-2
+SHARD_TSDF_SHARE = 2e-3
+SHARD_WEIGHT_SHARE = 2e-3
+SHARD_VMAP_P99 = 2e-3
+#: the sharded step's pose against the unsharded step's, both started from
+#: the unsharded step's state (metres; the H100 gave at most 1.43e-7: the
+#: ranks' sums of the normal equations round in another order)
+SHARD_POSE_TOL = 1e-6
+#: the sharded step's ICP inlier count against the unsharded step's from
+#: the same state, relative (a pose some ulps off may flip a rint tie; a
+#: rank's rows missing from the sum would cost about a quarter)
+SHARD_INLIER_SHARE = 1e-4
+#: the frames each sharded leg also steps from phase 4's state of the frame
+#: before. Free-running, the orbit's poses part from phase 4's under any
+#: change of rounding (the unsharded step with the gather ICP parts by
+#: 2.7e-4 m over the 50 frames), so each step is held to the unsharded one
+#: from the same state, as the CPU tests hold the port's step from each JAX
+#: state; the middle one also gathers the volume and holds it to phase 4's
+SHARD_FORCED = (10, 30, 45)
+#: the most of a face's rays whose hit (where it comes before the back
+#: event) may differ between the ranks' pmin and the unsharded K4 (the
+#: composite is exact: 0 expected)
+SHARD_PMIN_SHARE = 1e-3
+#: where phase 4d keeps its frames and phase 4's final volume for the ranks
+SHARD_OUT = REPO / "build" / "chip_smoke_shard"
+#: the shard forms in the kernels line: (launch-count key, name, source, the
+#: TPU kernel's call in its shard form)
+SHARD_KERNELS = (
+    ("icp_normal_eqs", "K1 icp_normal_eqs, row-shard form",
+     "kinfu_tpu_torch/csrc/icp_normal_eqs.cu", "kinfu_tpu/ops/pallas_icp.py:149"),
+    ("face_integrate", "K3 face_integrate, shard form", "kinfu_tpu_torch/csrc/face_integrate.cu",
+     "kinfu_tpu/ops/pallas_integrate.py:393"),
+    ("sweep_rays", "K4 sweep_rays, shard form", "kinfu_tpu_torch/csrc/sweep_rays.cu",
+     "kinfu_tpu/ops/pallas_raycast.py:287"),
+)
+
+
+def _rank_mesh(rank: int, device, shard_dim: int):
+    """A rank's `Mesh` without a process group, for the checks that run
+    every rank's part in this process."""
+    from kinfu_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(world=SHARD_RANKS, rank=rank, device=device, backend="gloo",
+                shard_dim=shard_dim)
+
+
+def _padded_slab(tsdf, sd: int, rank: int, halo: int):
+    """Rank `rank`'s slab of `tsdf` along `sd` with `halo` rows of its
+    neighbours a side and zero rows past the volume: what
+    `parallel/mesh.py::halo_exchange` gives the rank."""
+    import torch
+
+    L = tsdf.shape[sd]
+    Ll = L // SHARD_RANKS
+    lo, hi = rank * Ll - halo, (rank + 1) * Ll + halo
+    core = tsdf.narrow(sd, max(lo, 0), min(hi, L) - max(lo, 0))
+    parts = []
+    for rows in (max(0, -lo), None, max(0, hi - L)):
+        if rows is None:
+            parts.append(core)
+        elif rows:
+            shape = list(tsdf.shape)
+            shape[sd] = rows
+            parts.append(torch.zeros(shape, dtype=tsdf.dtype, device=tsdf.device))
+    return torch.cat(parts, dim=sd).contiguous()
+
+
+def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms: float):
+    """Phase 4d, part 1, in this process: the shard forms against their
+    plain versions at the main path's shapes, on the 512^3 volume fused
+    from orbit frames 0-2, cut into SHARD_RANKS Z slabs and as many Y slabs.
+    For each view of `views` [(tag, world-from-camera pose, faces)] and
+    shard dim: K2 on each slab's folded pose and K3 on each listed face of
+    each slab (all faces gated on), bit for bit; K4 on each rank's
+    halo-padded slab, hit bits equal and the back events by phase 3's rule,
+    then the ranks' minimum against the unsharded K4 in the same frame set:
+    the hits that come before their back events, which the shading reads
+    (fails where more than SHARD_PMIN_SHARE of a face's rays differ). Every
+    listed face of a view but the orbit's must do real work over the
+    slabs. K1's one-iteration form on each row shard of frame 3's pyramid
+    against its plain version, and the shards' sum against the whole.
+    Times the interior slab's +z shard forms of the orbit view (Z slabs)
+    and K1's level-0 row shard beside the unsharded launches (K3's from
+    phase 3, `phase3_k3_ms`). Returns
+    {key: [max_abs_err, ms, plain_ms, bound_ms, bound_by, unsharded_ms]}."""
+    import torch
+
+    from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid
+    from kinfu_tpu_torch.geometry.se3 import Pose, compose, inverse, pose_from_matrix, rodrigues
+    from kinfu_tpu_torch.ops import face_integrate as fi
+    from kinfu_tpu_torch.ops import face_raycast as fr
+    from kinfu_tpu_torch.ops import facewarp as fw
+    from kinfu_tpu_torch.ops import icp_warped as iw
+    from kinfu_tpu_torch.parallel.sharded import HALO8, ray_shard, row_shard
+    from kinfu_tpu_torch.volume.integrate import fold_shard_origin
+    from kinfu_tpu_torch.volume.tsdf import TSDFVolume, pack_rgb
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms = cuda_ms if device.type == "cuda" else (lambda fn, **k: float("nan"))
+    nan = float("nan")
+    res = {k: [0.0, nan, nan, nan, "", nan] for k, *_ in SHARD_KERNELS}
+    depth, color = frame
+    depth_m = torch.as_tensor(depth * np.float32(params.depth_scale), device=device)
+    col_packed = pack_rgb(torch.as_tensor(color, device=device))
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    fspec = fw.default_face_spec()
+    size, focal = params.raycast_face
+    rspec = fr.RaySpec(int(size), float(focal))
+    on = torch.ones((), dtype=torch.bool, device=device)
+    vs = params.voxel_size
+    vol = state.vol
+    W = SHARD_RANKS
+
+    for sd in (0, 1):
+        frames_sd = fw.face_frames(sd)
+        L = vol.tsdf.shape[sd]
+        Ll = L // W
+        for view, T, names in views:
+            cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
+            vol2cam, cam2vol = compose(inverse(cam), volp), compose(inverse(volp), cam)
+            prm5 = fr.composite_params(cam2vol, params, sd)
+            faces = [(f, frm) for f, frm in enumerate(frames_sd) if frm.name in names]
+            prm4 = {f: fr.ray_params(prm5[f, 9:12], fw.primed_voxel_size(frm, vs), rspec, on)
+                    for f, frm in faces}
+            whole = {f: fr.sweep_rays(vol.tsdf, frm, prm4[f], rspec) for f, frm in faces}
+            comp = {f: [torch.full((rspec.size,) * 2, 1e30, device=device)] * 2
+                    for f, _ in faces}
+            work = {f: 0 for f, _ in faces}
+            k4_differ = 0
+            for r in range(W):
+                off0 = r * Ll
+                tag = f"{view} {'ZY'[sd]} slab {r}"
+                slab = TSDFVolume(*(a.narrow(sd, off0, Ll).contiguous() for a in vol))
+                v2c = fold_shard_origin(vol2cam, off0, sd, vs)
+                dims_xyz = tuple(reversed(slab.tsdf.shape))
+                geo = [fw.face_geometry(v2c, frm, dims_xyz, vs) for frm in frames_sd]
+                prm6 = torch.stack([fw.face_params(A, intr, on, fspec) for A, _ in geo])
+                rk6, ck6, mk6 = fw.build_faces(depth_m, col_packed, prm6, fspec)
+                rp6, cp6, mp6 = fw.build_faces_plain(depth_m, col_packed, prm6, fspec)
+                sync()
+                if not (torch.equal(rk6, rp6) and torch.equal(ck6, cp6)
+                        and torch.equal(mk6, mp6)):
+                    _fail(f"K2 {tag}: the stacks of the folded pose differ from the plain "
+                          f"version's")
+                for f, frm in faces:
+                    prm3 = fi.sweep_params(geo[f][1], fw.primed_voxel_size(frm, vs), fspec,
+                                           params, mk6[f].float(), on, prm6[f], intr)
+                    dims_p = tuple(slab.tsdf.shape[a] for a in frm.axes)
+                    table = fi.plane_table(fspec, prm3, dims_p)
+                    vk = TSDFVolume(*(a.clone() for a in slab))
+                    vp = TSDFVolume(*(a.clone() for a in slab))
+                    fi.sweep_face(vk, frm, rk6[f], ck6[f], prm3, table)
+                    n_upd, n_col = (int(c) for c in
+                                    fi.sweep_face_plain(vp, frm, rk6[f], ck6[f], prm3, table))
+                    sync()
+                    err3 = max(int((a.int() - b.int()).abs().max()) for a, b in zip(vk, vp))
+                    changed = int((vk.weight != slab.weight).sum())
+                    work[f] += changed
+                    if err3 or changed != n_upd:
+                        _fail(f"K3 {tag} {frm.name} {frm.axes}: kernel and plain version differ "
+                              f"(max |diff| {err3}, {changed} against {n_upd} voxels updated)")
+                    if (sd, view, r, frm.name) == (0, "orbit", 1, "+z"):
+                        res["face_integrate"][1] = ms(
+                            lambda: fi.sweep_face(vk, frm, rk6[f], ck6[f], prm3, table))
+                        res["face_integrate"][2] = ms(
+                            lambda: fi.sweep_face_plain(vp, frm, rk6[f], ck6[f], prm3, table),
+                            reps=5, warmup=1)
+                        in_fp = int(fi.footprint_voxels(fi.plane_footprint(table, prm3, dims_p)))
+                        res["face_integrate"][3:5] = bound(
+                            8 * n_upd + 8 * n_col + nbytes(rk6[f], ck6[f], prm3, table),
+                            OPS["face_integrate_gate"] * in_fp
+                            + OPS["face_integrate_update"] * n_upd
+                            + OPS["face_integrate_colour"] * n_col)
+                    del vk, vp
+
+                padded = _padded_slab(vol.tsdf, sd, r, HALO8)
+                for f, frm in faces:
+                    sh = ray_shard(frm, padded.shape, L, Ll, off0, sd)
+                    hk, bk = fr.sweep_rays(padded, frm, prm4[f], rspec, sh)
+                    hp, bp = fr.sweep_rays_plain(padded, frm, prm4[f], rspec, sh)
+                    sync()
+                    okk, okp = (hk < bk) & (hk < 1e30), (hp < bp) & (hp < 1e30)
+                    agree = float((okk == okp).float().mean())
+                    both = okk & okp
+                    dt4 = float((hk - hp).abs()[both].max()) if bool(both.any()) else 0.0
+                    k4_differ += int((bk.view(torch.int32) != bp.view(torch.int32)).sum())
+                    if not torch.equal(hk.view(torch.int32), hp.view(torch.int32)) \
+                            or agree < K4_MASK_AGREE or dt4 > K4_T_TOL:
+                        _fail(f"K4 {tag} {frm.name} {sh}: hit bits differ from the plain "
+                              f"version's, or mask agreement {agree} / |dt| {dt4}")
+                    comp[f] = [torch.minimum(comp[f][0], hk), torch.minimum(comp[f][1], bk)]
+                    if (sd, view, r, frm.name) == (0, "orbit", 1, "+z"):
+                        res["sweep_rays"][1] = ms(
+                            lambda: fr.sweep_rays(padded, frm, prm4[f], rspec, sh))
+                        res["sweep_rays"][2] = ms(
+                            lambda: fr.sweep_rays_plain(padded, frm, prm4[f], rspec, sh),
+                            reps=3, warmup=1)
+                        n_vox, n_steps = (int(c) for c in fr.sweep_rays_work(
+                            padded, frm, prm4[f], rspec, sh))
+                        res["sweep_rays"][3:5] = bound(2 * n_vox + nbytes(prm4[f], hk, bk),
+                                                       OPS["sweep_rays"] * n_steps)
+                        res["sweep_rays"][5] = ms(
+                            lambda: fr.sweep_rays(vol.tsdf, frm, prm4[f], rspec))
+                del padded
+            worst = 0.0
+            for f, frm in faces:
+                hw, bw = whole[f]
+                hc, bc = comp[f]
+                # what the shading reads: a hit where it comes before the back
+                # event (a rank past an earlier back event may still find a
+                # later hit, which the back event then masks)
+                tw = torch.where((hw < bw) & (hw < 1e30), hw, 1e30)
+                tc = torch.where((hc < bc) & (hc < 1e30), hc, 1e30)
+                okc = tc < 1e30
+                differ = int((tw.view(torch.int32) != tc.view(torch.int32)).sum())
+                share = differ / hw.numel()
+                worst = max(worst, share)
+                if share > SHARD_PMIN_SHARE:
+                    _fail(f"K4 {view} {'ZY'[sd]} {frm.name}: the ranks' minimum differs from the "
+                          f"unsharded sweep on {differ} rays ({share:.3%})")
+                if view != "orbit" and not work[f]:
+                    _fail(f"K3 {view} {'ZY'[sd]} {frm.name}: no voxel updated over the slabs, so "
+                          f"the comparison tested nothing")
+                if view != "orbit" and not bool(okc.any()):
+                    _fail(f"K4 {view} {'ZY'[sd]} {frm.name}: no ray hit over the slabs")
+            print(f"  {'ZY'[sd]} slabs, {view}: faces {[frm.name for _, frm in faces]} "
+                  f"({[frm.axes for _, frm in faces]}); K2, K3 bit for bit on {W} slabs, voxels "
+                  f"updated {[work[f] for f, _ in faces]}; K4 hit bits equal, {k4_differ} rays "
+                  f"with other back bits; ranks' minimum against the unsharded K4: worst face "
+                  f"{worst:.4%} of rays differ", flush=True)
+    res["face_integrate"][5] = phase3_k3_ms
+
+    # K1's row-shard form at every level, the small increment of phase 3
+    p = params
+    _, cvs, cns = build_measurement_pyramid(
+        torch.as_tensor(depth, device=device), intr, pyramid_height=p.pyramid_height,
+        bfilter_kernel_size=p.bfilter_kernel_size, bfilter_color_sigma=p.bfilter_color_sigma,
+        bfilter_spatial_sigma=p.bfilter_spatial_sigma, depth_scale=p.depth_scale,
+        max_dist=p.dfilter_dist, normal_disc_threshold=p.normal_disc_threshold)
+    sin_t = math.sin(math.radians(p.icp_angle_threshold))
+    inc = Pose(rodrigues(torch.tensor([0.002, -0.004, 0.001], device=device)),
+               torch.tensor([0.004, -0.002, 0.003], device=device))
+    for level in range(p.pyramid_height):
+        li = intr.level(level)
+        mv, mn = state.model_vmaps[level], state.model_nmaps[level]
+        tail = (mv, mn, li, p.icp_dist_threshold, sin_t)
+        A, b, n = iw.icp_normal_eqs_warped(inc, cvs[level], cns[level], *tail)
+        sA, sb, sn = torch.zeros_like(A), torch.zeros_like(b), 0
+        for r in range(W):
+            mesh = _rank_mesh(r, device, 0)
+            cv, cn = row_shard(cvs[level], mesh), row_shard(cns[level], mesh)
+            Ak, bk, nk = iw.icp_normal_eqs_warped(inc, cv, cn, *tail)
+            Ap, bp, np_ = iw.icp_normal_eqs_warped_plain(inc, cv, cn, *tail)
+            sync()
+            err = max(float((Ak - Ap).abs().max()), float((bk - bp).abs().max()))
+            if int(nk) != int(np_) or float((Ak - Ap).abs().max()) > K1_TOL * float(
+                    Ap.abs().max()) or float((bk - bp).abs().max()) > K1_TOL * float(
+                    bp.abs().max()):
+                _fail(f"K1 level {level} row shard {r}: {int(nk)} inliers (plain {int(np_)}) or "
+                      f"A, b beyond {K1_TOL} of their largest entry")
+            res["icp_normal_eqs"][0] = max(res["icp_normal_eqs"][0], err)
+            sA, sb, sn = sA + Ak, sb + bk, sn + int(nk)
+            if level == 0 and r == 1:
+                res["icp_normal_eqs"][1] = ms(lambda: iw.icp_normal_eqs_warped(inc, cv, cn, *tail))
+                res["icp_normal_eqs"][2] = ms(
+                    lambda: iw.icp_normal_eqs_warped_plain(inc, cv, cn, *tail))
+                gathered = int(iw.icp_normal_eqs_warped_work(inc, cv, cn, mv, li))
+                res["icp_normal_eqs"][3:5] = bound(
+                    nbytes(cv, cn, Ak, bk, nk) + 24 * gathered,
+                    OPS["icp_normal_eqs"] * cv.shape[0] * cv.shape[1])
+                res["icp_normal_eqs"][5] = ms(
+                    lambda: iw.icp_normal_eqs_warped(inc, cvs[level], cns[level], *tail))
+        dA = float((sA - A).abs().max()) / max(float(A.abs().max()), 1e-30)
+        db = float((sb - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        print(f"  K1 level {level}: {W} row shards of {row_shard(cvs[level], mesh).shape[0]} "
+              f"rows, each equal to its plain version; their sum: {sn} inliers (whole "
+              f"{int(n)}), A and b within {dA:.2g} and {db:.2g} of the whole's largest entry",
+              flush=True)
+        if sn != int(n) or dA > K1_TOL or db > K1_TOL:
+            _fail(f"K1 level {level}: the row shards' sum differs from the whole image's")
+    for key, name, *_ in SHARD_KERNELS:
+        err, k_ms, p_ms, b_ms, b_by, u_ms = res[key]
+        print(f"  {name}: kernel {k_ms:.4f} ms (unsharded {u_ms:.4f}), plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3g}", flush=True)
+    return res
+
+
+def _volume_gap(full: dict, ref: str) -> dict:
+    """A gathered state (`unshard_state`) against the unsharded one saved
+    at the path prefix `ref` (`save_states`): the share of voxels whose
+    TSDF differs by more than SHARD_TSDF_TOL, of voxels whose weight
+    differs, and the 99th percentile of the level-0 model vertex map's gap
+    where both have a vertex."""
+    ref_t = np.load(ref + "_tsdf.npy", mmap_mode="r")
+    ref_w = np.load(ref + "_weight.npy", mmap_mode="r")
+    with np.load(ref + ".npz") as z:
+        ref_v = z["model_vmaps_0"]
+    tsdf_share = float(np.mean(np.abs(full["tsdf"].astype(np.float32)
+                                      - ref_t.astype(np.float32)) / 32767.0 > SHARD_TSDF_TOL))
+    dv = full["model_vmaps"][0]
+    both = (np.abs(ref_v[..., 2]) > 0) & (np.abs(dv[..., 2]) > 0)
+    gap = np.abs(ref_v - dv).max(axis=-1)[both]
+    return dict(tsdf_share=tsdf_share, weight_share=float(np.mean(full["weight"] != ref_w)),
+                vmap_p99=float(np.percentile(gap, 99)) if gap.size else float("inf"),
+                hits=int(both.sum()), weighted=int((full["weight"] > 0).sum()))
+
+
+def _load_state(prefix: str) -> dict:
+    """The fields of `state_to_numpy` saved at `prefix` by `save_states`,
+    the volume memory-mapped (a rank reads its slab only)."""
+    d = {k: np.load(f"{prefix}_{k}.npy", mmap_mode="r") for k in ("tsdf", "weight", "color")}
+    with np.load(prefix + ".npz") as z:
+        d.update(pose=z["pose"], frame_count=z["frame_count"],
+                 model_vmaps=[z[f"model_vmaps_{i}"] for i in range(int(z["levels"]))],
+                 model_nmaps=[z[f"model_nmaps_{i}"] for i in range(int(z["levels"]))])
+    return d
+
+
+def _shard_rank(mesh, job):
+    """Phase 4d, part 2, one rank (a process of its own): each leg of
+    `job["legs"]` [(path, shard dim, params, frames)] from a fresh state
+    through the sharded step on this rank's device, the launch and
+    collective counts set to 0 just before and read just after; frames 2-4
+    run under sync-debug mode "warn", counting its warnings from the step's
+    thread and from gloo's (which print to stderr). Then, for each frame k
+    of `job["forced"]`, one sharded step of frame k from phase 4's state
+    after frame k - 1 (`shard_state`), gathering the volume after the
+    middle one (`unshard_state`), which rank 0 holds against phase 4's.
+    Returns {path: record}."""
+    import dataclasses
+    import os
+    import tempfile
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.parallel import mesh as pmesh
+    from kinfu_tpu_torch.parallel.sharded import (
+        init_state_local,
+        make_sharded_step_fn,
+        shard_state,
+        unshard_state,
+    )
+
+    with np.load(job["frames"]) as z:
+        depths, colors = z["depth"], z["color"]
+    intr = job["intr"]
+    out = {}
+    for path, sd, params, n in job["legs"]:
+        m = dataclasses.replace(mesh, shard_dim=sd)
+        step = make_sharded_step_fn(params, intr, m)
+        state = init_state_local(params, intr, m)
+        frames = [(torch.as_tensor(depths[k], device=m.device),
+                   torch.as_tensor(colors[k], device=m.device)) for k in range(n)]
+        on_card = m.device.type == "cuda"
+        _sync(m.device)
+        dist.barrier()
+        kernels.reset_launch_counts()
+        pmesh.reset_collective_counts()
+        outs, events, syncs = [], [], []
+        for k, (d, c) in enumerate(frames):
+            count = on_card and 2 <= k <= 4
+            a = torch.cuda.Event(enable_timing=True) if on_card else None
+            if on_card:
+                a.record()
+            # the step's own thread warns through Python; gloo's worker
+            # threads, which stage CUDA tensors through the host, print from
+            # C++ to stderr, which is read from a file here
+            with warnings.catch_warnings(record=True) as caught, \
+                    tempfile.TemporaryFile() as err:
+                warnings.simplefilter("always")
+                if count:
+                    saved = os.dup(2)
+                    os.dup2(err.fileno(), 2)
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, o = step(state, d, c)
+                finally:
+                    if count:
+                        torch.cuda.set_sync_debug_mode("default")
+                        _sync(m.device)
+                        os.dup2(saved, 2)
+                        os.close(saved)
+                        err.seek(0)
+                        syncs.append((sum("called a synchronizing CUDA operation"
+                                          in str(w.message) for w in caught),
+                                      err.read().count(b"called a synchronizing CUDA operation")))
+            if on_card:
+                b = torch.cuda.Event(enable_timing=True)
+                b.record()
+                events.append((a, b))
+            outs.append(o)
+        _sync(m.device)
+        rec = dict(launches=dict(kernels.LAUNCHES), collectives=dict(pmesh.COLLECTIVES),
+                   syncs=syncs,
+                   ms=[a.elapsed_time(b) for a, b in events] if on_card else [float("nan")] * n,
+                   poses=np.stack([o.pose_matrix.cpu().numpy() for o in outs]),
+                   oks=np.array([bool(o.tracking_ok) for o in outs]),
+                   inliers=np.array([int(o.icp_inliers) for o in outs]))
+        del state
+        rec["forced"] = {}
+        forced = job["forced"]
+        for k in forced:
+            state = shard_state(_load_state(f"{job['states']}{k - 1}"), m)
+            state, o = step(state, torch.as_tensor(depths[k], device=m.device),
+                            torch.as_tensor(colors[k], device=m.device))
+            rec["forced"][k] = (o.pose_matrix.cpu().numpy(), bool(o.tracking_ok),
+                                int(o.icp_inliers))
+            if k == forced[1]:
+                full = unshard_state(state, m)
+                if m.rank == 0:
+                    rec["forced_volume"] = _volume_gap(full, f"{job['states']}{k}")
+                del full
+            del state
+        del frames
+        _empty_cache(m.device)
+        out[path] = rec
+    if job.get("profile"):
+        out["profile"] = _profile_rank(mesh, job, depths, colors)
+    return out
+
+
+def _profile_rank(mesh, job, depths, colors, first: int = 2, n: int = 6):
+    """Z-sharded fused steps of frames 0..n-1 from a fresh state on every
+    rank, rank 0 under torch.profiler for frames first..n-1 (the profiler
+    stays off until the rank's other work is done: once started, it slows
+    every later launch). Returns rank 0's device ms a frame of each port
+    kernel, its launches a frame, and its busy ms a frame; the ranks share
+    the card, so a kernel's span may include other ranks' time slices."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kinfu_tpu_torch.parallel.sharded import init_state_local, make_sharded_step_fn
+
+    params = job["legs"][0][2]
+    m = dataclasses.replace(mesh, shard_dim=0)
+    step = make_sharded_step_fn(params, job["intr"], m)
+    state = init_state_local(params, job["intr"], m)
+    frames = [(torch.as_tensor(depths[k], device=m.device),
+               torch.as_tensor(colors[k], device=m.device)) for k in range(n)]
+    for d, c in frames[:first]:
+        state, _ = step(state, d, c)
+    _sync(m.device)
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if m.rank == 0
+           else contextlib.nullcontext())
+    with ctx as prof:
+        for d, c in frames[first:]:
+            state, _ = step(state, d, c)
+        _sync(m.device)
+    if m.rank != 0:
+        return None
+    k = n - first
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"busy": sum(e.time_range.elapsed_us() for e in ev) / 1e3 / k,
+           "launches": len(ev) / k}
+    for key, *_ in KERNELS:
+        mine = [e.time_range.elapsed_us() / 1e3 for e in ev if f"{key}_kernel" in e.name]
+        out[key] = (sum(mine) / k, len(mine) / k)
+    return out
+
+
+def save_states(frames, params, intr, device, keep) -> Path:
+    """The unsharded step over `frames` from a fresh state, each state after
+    a frame of `keep` saved under SHARD_OUT (the volume as .npy files, the
+    rest in an .npz) for the ranks of phase 4d; the run repeats phase 4's
+    bits. Returns the path prefix, to which the frame index is added."""
+    import torch
+
+    from kinfu_tpu_torch.pipeline.kinfu import init_state, make_step_fn
+    from kinfu_tpu_torch.pipeline.state import state_to_numpy
+
+    prefix = SHARD_OUT / "state"
+    step = make_step_fn(params, intr)
+    state = init_state(params, intr, device=device)
+    for k, (d, c) in enumerate(frames[:max(keep) + 1]):
+        state, _ = step(state, torch.as_tensor(d, device=device),
+                        torch.as_tensor(c, device=device))
+        if k in keep:
+            s = state_to_numpy(state)
+            for key in ("tsdf", "weight", "color"):
+                np.save(f"{prefix}{k}_{key}.npy", s[key])
+            np.savez(f"{prefix}{k}.npz", pose=s["pose"], frame_count=s["frame_count"],
+                     levels=len(s["model_vmaps"]),
+                     **{f"model_vmaps_{i}": v for i, v in enumerate(s["model_vmaps"])},
+                     **{f"model_nmaps_{i}": v for i, v in enumerate(s["model_nmaps"])})
+    del state
+    _empty_cache(device)
+    return prefix
+
+
+def run_sharded(frames, gt, params, intr, device, fused_poses, fused_inliers, nf_poses,
+                gather_gap: float, smi, profile: bool):
+    """Phase 4d, part 2: SHARD_RANKS ranks on the one card (gloo, "spawn"
+    processes that load the kernels phase 2 built) run the orbit's frames
+    through the sharded step: all of them Z-sharded and fused, all of them
+    Y-sharded and fused (the +-x faces, live on frames 19-49, sweep in the
+    (2, 1, 0) frame), and SHARD_NONFUSED_FRAMES Z-sharded with
+    fused_mode="off"; then each leg steps each frame of SHARD_FORCED from
+    phase 4's state. Fails unless every rank gives the same poses, every
+    frame after the first tracks, the aligned ATE is <= 1 mm, each rank
+    launches K1 19 times a frame, K2 and K5 once, K3 and K4 six times (a
+    launch a face, each reading its gate), and each step from phase 4's
+    state gives phase 4's pose within SHARD_POSE_TOL and its ICP inlier
+    count within SHARD_INLIER_SHARE (the non-fused step tracks as the fused
+    one does) and, at the middle frame, its volume and model map within
+    tests/test_distributed.py's tolerances. Prints the free-running legs'
+    pose gap against phase 4's (4c's), ungated, over all their frames and
+    over the first GATHER_FRAMES beside `gather_gap`, the gap of phase 4's
+    gather-ICP leg over those frames. With `profile`, rank 0
+    also runs Z-sharded steps under torch.profiler. Returns {path:
+    launches summed over the ranks} and the legs' ms/frame."""
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.parallel.mesh import spawn
+
+    n = len(frames)
+    t0 = time.perf_counter()
+    np.savez(SHARD_OUT / "frames.npz", depth=np.stack([d for d, _ in frames]),
+             color=np.stack([c for _, c in frames]))
+    keep = {SHARD_FORCED[1], *(k - 1 for k in SHARD_FORCED)}
+    states = save_states(frames, params, intr, device, keep)
+    legs = [("sharded_z", 0, params, n), ("sharded_y", 1, params, n),
+            ("sharded_nonfused", 0, params.replace(fused_mode="off"), SHARD_NONFUSED_FRAMES)]
+    print(f"  phase 4's states after frames {sorted(keep)} saved in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  {SHARD_RANKS} ranks on the one card (gloo): the orbit's {n} frames Z-sharded "
+          f"and Y-sharded (fused), {SHARD_NONFUSED_FRAMES} frames Z-sharded non-fused; each leg "
+          f"then steps frames {SHARD_FORCED} from phase 4's state", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn(_shard_rank, SHARD_RANKS, dict(frames=str(SHARD_OUT / "frames.npz"), intr=intr,
+                                                 legs=legs, states=str(states),
+                                                 forced=SHARD_FORCED, profile=profile),
+                  backend="gloo", device=device.type, threads=2, workdir=str(SHARD_OUT))
+    print(f"  the ranks ran in {time.perf_counter() - t0:.1f} s (start-up included)", flush=True)
+    prof = ranks[0].get("profile")
+    if prof:
+        print(f"  rank 0 of the Z-sharded step under torch.profiler, frames 2-5: kernels busy "
+              f"{prof['busy']:.3f} ms/frame in {prof['launches']:.0f} launches; "
+              + "; ".join(f"{name} {prof[key][0]:.4f} ms/frame in {prof[key][1]:g} launches"
+                          for key, name, *_ in KERNELS)
+              + " (the 4 ranks share the card: a span may hold other ranks' time slices)",
+              flush=True)
+    launches, ms = {}, {}
+    for path, sd, p, m in legs:
+        recs = [r[path] for r in ranks]
+        poses, oks = recs[0]["poses"], recs[0]["oks"]
+        same = all(np.array_equal(r["poses"], poses) for r in recs)
+        ate = ate_rmse(list(poses), gt[:m])
+        ref = nf_poses if p.fused_mode == "off" else fused_poses
+        gap = float(np.abs(poses - ref[:m]).max())
+        gap_g = float(np.abs(poses[:GATHER_FRAMES] - ref[:GATHER_FRAMES]).max())
+        ms[path] = float(np.median([np.median(r["ms"][2:]) for r in recs]))
+        coll = recs[0]["collectives"]
+        per_frame = {k: v / m for k, v in sorted(coll.items()) if not k.endswith("_bytes")}
+        mb = {k[:-6]: round(v / m / 2**20, 3) for k, v in sorted(coll.items())
+              if k.endswith("_bytes")}
+        launches[path] = {k: sum(r["launches"].get(k, 0) for r in recs)
+                          for k in recs[0]["launches"]}
+        print(f"  [{path}] shard dim {sd}, fused_mode={p.fused_mode!r}: tracked "
+              f"{int(oks[1:].sum())}/{m - 1} after the bootstrap; aligned ATE {ate * 1e3:.4f} mm; "
+              f"ranks agree: {same}", flush=True)
+        print(f"    {ms[path]:.3f} ms/frame a rank (median over the ranks of each one's median "
+              f"of frames 2-{m - 1}, CUDA events) with {SHARD_RANKS} ranks sharing one card on "
+              f"{smi}: not a speed measure of a {SHARD_RANKS}-card mesh", flush=True)
+        print(f"    collectives a frame (rank 0): {per_frame}, MiB a frame {mb}; host syncs a "
+              f"step under sync-debug \"warn\" (frames 2-4, each rank, (the step's thread, "
+              f"gloo's threads)): {[r['syncs'] for r in recs]}; launches a frame a rank: "
+              f"{ {k: v / m for k, v in sorted(recs[0]['launches'].items())} }", flush=True)
+        if not same:
+            _fail(f"{path}: the ranks' poses differ")
+        if not oks[1:].all() or not np.isfinite(poses).all():
+            _fail(f"{path}: tracking failed at frames {np.nonzero(~oks[1:])[0] + 1}")
+        if ate > ATE_MAX:
+            _fail(f"{path}: aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
+        forced = {k: float(np.abs(recs[0]["forced"][k][0] - fused_poses[k]).max())
+                  for k in SHARD_FORCED}
+        inl = {k: (recs[0]["forced"][k][2], int(fused_inliers[k])) for k in SHARD_FORCED}
+        print(f"    free-running, the poses part from phase "
+              f"{'4c' if p.fused_mode == 'off' else '4'}'s by {gap:.3g} m over {m} frames and "
+              f"{gap_g:.3g} m over the first {GATHER_FRAMES} (phase 4's gather-ICP leg: "
+              f"{gather_gap:.3g} m; printed, not gated); "
+              f"one step from phase 4's state: |pose - phase 4 pose| at frames {forced}, ICP "
+              f"inliers (sharded, phase 4) {inl}", flush=True)
+        if any(not r["forced"][k][1] or not np.array_equal(r["forced"][k][0],
+                                                           recs[0]["forced"][k][0])
+               for r in recs for k in SHARD_FORCED):
+            _fail(f"{path}: a step from phase 4's state lost tracking or the ranks differ")
+        if max(forced.values()) > SHARD_POSE_TOL:
+            _fail(f"{path}: a step from phase 4's state is {max(forced.values())} m from "
+                  f"phase 4's pose")
+        if any(abs(a - b) > SHARD_INLIER_SHARE * b for a, b in inl.values()):
+            _fail(f"{path}: a step from phase 4's state counts other ICP inliers: {inl}")
+        for r, rec in enumerate(recs):
+            check_counts(rec["launches"], {"icp_normal_eqs": 19 * m, "build_face": m,
+                                           "resample_face": m, "face_integrate": 6 * m,
+                                           "sweep_rays": 6 * m}, f"{path}, rank {r}")
+        v = recs[0]["forced_volume"]
+        print(f"    the volume of frame {SHARD_FORCED[1]} stepped from phase 4's state against "
+              f"phase 4's: TSDF beyond {SHARD_TSDF_TOL} on {v['tsdf_share']:.4%} of voxels, "
+              f"weights differ on {v['weight_share']:.4%} ({v['weighted']} weighted voxels); "
+              f"model map 99th percentile gap {v['vmap_p99']:.3g} m over {v['hits']} pixels",
+              flush=True)
+        if (v["tsdf_share"] >= SHARD_TSDF_SHARE or v["weight_share"] >= SHARD_WEIGHT_SHARE
+                or v["vmap_p99"] >= SHARD_VMAP_P99 or not v["hits"]):
+            _fail(f"{path}: the volume of frame {SHARD_FORCED[1]} differs from phase 4's")
+        if sd == 1:
+            gates = face_gates(poses, oks, params, intr, device)
+            print(f"    faces gated on a frame: {gate_runs(gates)}", flush=True)
+            if not gates[:, [2, 5]].any():
+                _fail(f"{path}: no +-x face went live, so the (2, 1, 0) frame never ran")
+    return launches, ms
+
+
+def run_sweep(cli_dir: Path, session_poses, n: int):
+    """Phase 4d, part 3: `python -m kinfu_tpu_torch sweep --devices 2` (two
+    ranks on the one card, gloo) over two copies of phase 5b's PNG dataset
+    at 512^3, each sequence's poses written to disk. Fails unless the
+    command exits 0, prints one JSON line per sequence with no tracking
+    failure, and each sequence's poses are the session's over the same
+    PNGs (phase 5b) within SESSION_POSE_TOL. Returns the launches the ranks
+    report."""
+    import shutil
+
+    from kinfu_tpu_torch.io.poses import read_poses_reference_format
+
+    data = cli_dir / "data"
+    copy = SHARD_OUT / "data_copy"
+    out = SHARD_OUT / "sweep_poses"
+    for d in (copy, out):
+        if d.exists():
+            shutil.rmtree(d)
+    shutil.copytree(data, copy)
+    cmd = [sys.executable, "-m", "kinfu_tpu_torch", "sweep", "--devices", "2", "--synthetic",
+           "0", "--data", str(data), "--data", str(copy), "--frames", str(n), "--dims", "512",
+           "--save-poses", str(out)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, timeout=600)
+    print(f"  $ {' '.join(cmd[1:])}\n    exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if res.returncode != 0:
+        _fail(f"sweep exited {res.returncode}:\n{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    launches = json.loads(next(ln for ln in lines if ln.startswith("# launches"))
+                          .split(":", 1)[1])
+    for ln in lines:
+        print(f"    {ln}", flush=True)
+    if len(rows) != 2 or any(r["tracking_failures"] or r["frames"] != n for r in rows):
+        _fail(f"sweep: rows {rows}")
+    for name in ("data", "data_copy"):
+        poses = np.stack(read_poses_reference_format(str(out / f"{name}_512.txt")))
+        gap = float(np.abs(poses - np.stack(session_poses[:n])).max())
+        print(f"    {name}: max |pose - phase 5b session pose| {gap:.3g}", flush=True)
+        if gap > SESSION_POSE_TOL:
+            _fail(f"sweep: {name}'s poses are {gap} from the session's over the same PNGs")
+    return launches
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1632,12 +2332,14 @@ def nvidia_smi_line() -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile-table", metavar="PATH", default=str(PROFILE_TABLE),
-                    help="where to write the full profiler table (default: %(default)s)")
+    ap.add_argument("--profile-table", metavar="PATH",
+                    help=f"where to write the full profiler table (default: {PROFILE_TABLE}); "
+                         "given, phase 4d also profiles rank 0 of the Z-sharded step")
     ap.add_argument("--count-syncs", action="store_true",
                     help="only count the host syncs of a step (frames 2-5 of the orbit, "
                          "under sync-debug mode \"warn\") and exit, printing no result")
     args = ap.parse_args()
+    table = args.profile_table or str(PROFILE_TABLE)
 
     import torch
 
@@ -1763,7 +2465,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     c_ms = run_corner(c_frames, c_gt, params, intr, device, res, k1_want, smi)
-    nf_launches, nf_ms = run_nonfused(frames[:n], gt, params, intr, device, poses, smi)
+    nf_launches, nf_ms, nf_poses = run_nonfused(frames[:n], gt, params, intr, device, poses,
+                                                smi)
 
     print(f"[5] session: {n} frames through KinFuSession (default device)", flush=True)
     s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
@@ -1773,27 +2476,56 @@ def main() -> None:
     print(f"[5b] CLI: the first {CLI_FRAMES} orbit frames as a bundled dataset under "
           f"{CLI_OUT.relative_to(REPO)}, through python -m kinfu_tpu_torch run and eval",
           flush=True)
-    cli_launches = run_cli(frames, gt, poses, params, intr, CLI_OUT, CLI_FRAMES)
+    cli_launches, cli_session_poses = run_cli(frames, gt, poses, params, intr, CLI_OUT,
+                                              CLI_FRAMES)
     torch.cuda.empty_cache()
     reloc_launches = run_relocalize(frames[:n], gt[:n], params, intr, smi)
     pg_launches = run_pose_graph(params, intr, smi)
+
+    t_4d = time.perf_counter()
+    print(f"[4d] the sharded step on the one card: shard forms against their plain versions "
+          f"({SHARD_RANKS} Z slabs and {SHARD_RANKS} Y slabs of the 512^3 volume fused from "
+          f"frames 0-2, frame 3)", flush=True)
+    state = init_state(params, intr, device=device)
+    for d, c in frames[:3]:
+        state, _ = kinfu_step(state, torch.as_tensor(d, device=device),
+                              torch.as_tensor(c, device=device), params, intr)
+    torch.cuda.synchronize()
+    shard_res = check_shard_kernels(
+        state, frames[3], [("orbit", gt[3], names)] + [(tag, T, (tag.split()[1],))
+                                                       for tag, T in inside],
+        params, intr, device, res["face_integrate"][1])
+    del state
+    torch.cuda.empty_cache()
+    print(f"  the shard forms' checks took {time.perf_counter() - t_4d:.1f} s", flush=True)
+    SHARD_OUT.mkdir(parents=True, exist_ok=True)
+    shard_launches, shard_ms = run_sharded(frames[:n], gt, params, intr, device, poses, inliers,
+                                           nf_poses, g_gap, smi,
+                                           profile=args.profile_table is not None)
+    sweep_launches = run_sweep(CLI_OUT, cli_session_poses, CLI_FRAMES)
+    torch.cuda.empty_cache()
+    print(f"  phase 4d took {time.perf_counter() - t_4d:.1f} s", flush=True)
 
     for key, name, *_ in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by = res[key]
         print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), max abs err {err:.3g}, {launches[key] / n:g} launches a frame  "
               f"[{smi}]", flush=True)
-    profile_steps(frames[:n], params, intr, device, args.profile_table, ms_frame)
-    profile_steps(c_frames, params, intr, device, str(Path(args.profile_table).with_suffix(
+    profile_steps(frames[:n], params, intr, device, table, ms_frame)
+    profile_steps(c_frames, params, intr, device, str(Path(table).with_suffix(
         ".corner.txt")), c_ms, n=28, first=20, label="corner orbit (two faces live)", icp=False)
     profile_steps(frames[:n], params.replace(fused_mode="off"), intr, device,
-                  str(Path(args.profile_table).with_suffix(".nonfused.txt")), nf_ms,
+                  str(Path(table).with_suffix(".nonfused.txt")), nf_ms,
                   label="non-fused orbit", icp=False)
     profile_relocalize(frames, params, intr, device)
 
     paths = {"orbit": launches, "session": s_launches, "cli_session": cli_launches,
              "non_fused": nf_launches, "relocalize_step": reloc_launches,
-             "pose_graph_session": pg_launches}
+             "pose_graph_session": pg_launches, **shard_launches, "sweep": sweep_launches}
+    for path in (*shard_launches, "sweep"):
+        for key, name, *_ in KERNELS:
+            if paths[path].get(key, 0) <= 0:
+                _fail(f"{name} was not launched on the path {path}")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(launches[key]), "max_abs_err": float(res[key][0]),
@@ -1801,6 +2533,15 @@ def main() -> None:
          "bound_by": res[key][4], "library_ms": None,
          "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()}}
         for key, name, src, rep in KERNELS
+    ] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": int(shard_launches["sharded_z"][key]),
+         "max_abs_err": float(shard_res[key][0]), "ms": shard_res[key][1],
+         "plain_ms": shard_res[key][2], "bound_ms": shard_res[key][3],
+         "bound_by": shard_res[key][4], "library_ms": None,
+         "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()
+                              if p.startswith("sharded")}}
+        for key, name, src, rep in SHARD_KERNELS
     ]}
     print(json.dumps(summary))
     print(f"{smi}")

@@ -36,6 +36,10 @@ SECONDS = {
     "test_dispatch.py": 207,
     "test_pallas_integrate.py": 188,
     "test_torch_io_cli.py": 129,
+    "test_torch_sharded_integrate.py": 72,
+    "test_torch_sharded_fused.py": 57,
+    "test_torch_sharded_step.py": 42,
+    "test_torch_sharded_kernels.py": 29,
     "test_pallas_raycast.py": 127,
     "test_torch_mapping.py": 120,
     "test_mapping.py": 96,

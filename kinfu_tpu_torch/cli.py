@@ -5,7 +5,8 @@
 Commands:
   run    fuse an RGB-D sequence from disk: tracking + TSDF fusion + exports
   eval   ATE/RPE of an estimated trajectory against ground truth
-  sweep  replica-parallel eval sweep (not ported yet: ROADMAP queue 1, item 12)
+  sweep  replica-parallel eval sweep: sequences x configs over `--devices`
+         ranks (parallel/sweep.py), one JSON line per (sequence, config)
   bench  per-frame latency benchmark (not ported yet: ROADMAP queue 1, item 7)
 
 `run` drives `KinFuSession` on `--device`: on the card the fused step on
@@ -16,6 +17,11 @@ loss and re-acquires it from a keyframe; `--pose-graph` closes loops and
 rebuilds the map at the corrected poses; both go through the integrate
 and raycast dispatchers, which on the card launch the same kernels.
 `--streaming` raises, naming its ROADMAP item.
+
+`sweep` starts `--devices` rank processes on `--device` in a gloo process
+group (several ranks may share one card) and tracks synthetic orbits and
+datasets from disk over them; `--save-poses DIR` writes each sequence's
+poses.
 """
 
 from __future__ import annotations
@@ -195,8 +201,96 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _sweep_rank(mesh, sequences, dims, args, intr, scale):
+    """One rank of `sweep`: every config's sweep over the mesh; returns per
+    config (wall seconds, per-sequence (poses, oks)), and the rank's kernel
+    launches."""
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.parallel.sweep import sweep_sequences
+
+    kernels.reset_launch_counts()
+    out = []
+    for dim in dims:
+        params = _params_from_args(args, scale).replace(volume_dims=(dim,) * 3)
+        t0 = time.perf_counter()
+        results = sweep_sequences(sequences, params, intr, mesh)
+        out.append((time.perf_counter() - t0, results))
+    return out, dict(kernels.LAUNCHES)
+
+
 def cmd_sweep(args) -> int:
-    raise _not_ported("the sweep command (replica-parallel sweeps over a mesh)", "item 12")
+    """Replica-parallel eval sweep (kinfu_tpu/cli.py::cmd_sweep): sequences
+    x configs over `--devices` ranks. Prints one JSON line per (sequence,
+    config) with its tracking failures, the wall ms a frame and, for the
+    synthetic orbits, the ATE; then a summary line."""
+    from kinfu_tpu_torch.data.synthetic import default_test_scene, make_orbit_trajectory
+    from kinfu_tpu_torch.device import resolve_device
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
+    from kinfu_tpu_torch.parallel.mesh import spawn
+
+    resolve_device(args.device)
+    sequences, gts, names = [], [], []
+    datasets = [_open_dataset(root, "auto")[0] for root in args.data or []]
+    if datasets:
+        # every sequence of one sweep shares the frame size: the datasets'
+        intr = datasets[0].intrinsics
+        scale = intr.depth_scale if intr.depth_scale != 1.0 else 0.001
+    else:
+        intr = Intrinsics(width=args.width, height=args.height, fx=525.0 * args.width / 640,
+                          fy=525.0 * args.width / 640, cx=args.width / 2 - 0.5,
+                          cy=args.height / 2 - 0.5)
+        scale = 0.001
+    scene = default_test_scene()
+    for k in range(args.synthetic):
+        step = 0.2 + 0.15 * k  # distinct trajectories per replica
+        traj = make_orbit_trajectory(args.frames, angle_step_deg=step)
+        frames = [scene.render_frame(T, intr) for T in traj]
+        sequences.append((np.stack([d for d, _ in frames]), np.stack([c for _, c in frames])))
+        gts.append([np.linalg.inv(traj[0]) @ T for T in traj])
+        names.append(f"orbit_{step:.2f}deg")
+    for root, ds in zip(args.data or [], datasets):
+        frames = [ds[i] for i in range(min(args.frames, len(ds)))]
+        sequences.append((np.stack([np.asarray(d, np.float32) for _, d in frames]),
+                          np.stack([c for c, _ in frames])))
+        gts.append(None)
+        names.append(os.path.basename(os.path.normpath(root)))
+    if not sequences:
+        raise SystemExit("sweep: no sequences (--synthetic 0 and no --data)")
+
+    world = args.devices or 1
+    dims = [int(d) for d in args.dims.split(",")]
+    # ranks on the CPU share its cores
+    threads = (max(1, (os.cpu_count() or 1) // world)
+               if resolve_device(args.device).type == "cpu" else None)
+    ranks = spawn(_sweep_rank, world, sequences, dims, args, intr, scale,
+                  device=args.device, threads=threads)
+    per_config = ranks[0][0]
+    launches = {}
+    for _, counts in ranks:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    if args.save_poses:
+        os.makedirs(args.save_poses, exist_ok=True)
+    n_waves = -(-len(sequences) // world)
+    for dim, (wall, results) in zip(dims, per_config):
+        ms_frame = wall / (n_waves * args.frames) * 1e3
+        for name, gt, (poses, oks) in zip(names, gts, results):
+            row = {"sequence": name, "dim": dim, "frames": int(oks.shape[0]),
+                   "tracking_failures": int((~oks).sum()),
+                   "ms_per_frame_wall": round(ms_frame, 2)}
+            if gt is not None:
+                row["ate_rmse_m"] = round(float(ate_rmse(list(poses), gt[:len(poses)])), 6)
+            if args.save_poses:
+                from kinfu_tpu_torch.io.poses import write_poses_reference_format
+
+                write_poses_reference_format(
+                    os.path.join(args.save_poses, f"{name}_{dim}.txt"), list(poses))
+            print(json.dumps(row))
+    print(f"# sweep: {len(sequences)} sequences x {len(dims)} configs on {world} ranks "
+          f"(gloo, {args.device})")
+    print(f"# launches, summed over the ranks: {json.dumps(launches, sort_keys=True)}")
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -248,14 +342,23 @@ def main(argv=None) -> int:
     ep.add_argument("--no-align", action="store_true")
     ep.set_defaults(fn=cmd_eval)
 
-    sp = sub.add_parser("sweep", help="replica-parallel eval sweep (not ported yet: item 12)")
-    sp.add_argument("--synthetic", type=int, default=8)
-    sp.add_argument("--data", action="append", default=None)
+    sp = sub.add_parser("sweep", help="replica-parallel eval sweep (sequences x configs)")
+    sp.add_argument("--synthetic", type=int, default=8,
+                    help="number of synthetic orbit sequences")
+    sp.add_argument("--data", action="append", default=None,
+                    help="dataset root (repeatable); its intrinsics replace --width/--height")
     sp.add_argument("--frames", type=int, default=12)
     sp.add_argument("--width", type=int, default=160)
     sp.add_argument("--height", type=int, default=120)
-    sp.add_argument("--dims", type=str, default="128")
-    sp.add_argument("--devices", type=int, default=None)
+    sp.add_argument("--dims", type=str, default="128",
+                    help="comma-separated volume dims (one config each)")
+    sp.add_argument("--devices", type=int, default=None,
+                    help="rank processes (default 1); several may share one card")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device type of the ranks (default: %(default)s, cuda:{rank %% "
+                         "cards}; raises without CUDA)")
+    sp.add_argument("--save-poses", default=None, metavar="DIR",
+                    help="write each (sequence, config)'s poses to DIR/NAME_DIM.txt")
     _add_params_flags(sp)
     sp.set_defaults(fn=cmd_sweep)
 

@@ -228,7 +228,8 @@ __device__ __forceinline__ void fuse_voxel(short* __restrict__ tsdf, short* __re
 }
 
 // Permutations (axes) taken: (0,1,2) +-z and (1,0,2) +-y, whose primed x is
-// natural x; (2,0,1) +-x, whose sweep axis is natural x.
+// natural x; (2,0,1) +-x and, for a volume sharded along natural y, (2,1,0)
+// +-x (kinfu_tpu/ops/facewarp.py:117-160), whose sweep axis is natural x.
 __global__ void __launch_bounds__(kThreads)
 face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
                       int* __restrict__ color, const short* __restrict__ frange,
@@ -245,7 +246,7 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
   const int dims[3] = {nZ, nY, nX};
   const int Zp = dims[ax0], Yp = dims[ax1];
   const bool x_sweeps = ax0 == 2;
-  const int Xp = x_sweeps ? nY : nX;
+  const int Xp = dims[3 - ax0 - ax1];
   const Sweep w{prm[0], prm[1], prm[3], prm[4], prm[6], prm[8], prm[9]};
   const Frustum fr = camera_frustum(prm);
 
@@ -321,8 +322,9 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
                    stack_rows);
       }
     } else {
-      // a lane a plane (natural x), the warp's row a = natural z; a step
-      // along primed x = natural y
+      // a lane a plane (natural x), the warp's row a = natural z and a step
+      // along primed x b = natural y, or (axes (2,1,0)) a = natural y and
+      // b = natural z
       const int x = s * 32 + lane;
       const Row r = plane_row(table, w, flip ? Zp - 1 - min(x, nX - 1) : min(x, nX - 1), a,
                               gt_y, F);
@@ -330,8 +332,10 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
       if (!__any_sync(kFull, live)) continue;
       for (int b = rect.z; b <= rect.w; ++b) {
         if (live) {
-          fuse_voxel(tsdf, weight, color, frange, fcolor, w, r,
-                     (static_cast<long long>(a) * nY + b) * nX + x, b, gt_x, F, stack_rows);
+          const long long zy = ax1 == 0 ? static_cast<long long>(a) * nY + b
+                                        : static_cast<long long>(b) * nY + a;
+          fuse_voxel(tsdf, weight, color, frange, fcolor, w, r, zy * nX + x, b, gt_x, F,
+                     stack_rows);
         }
       }
     }
@@ -345,7 +349,7 @@ extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const
                                     int nZ, int nY, int nX, int ax0, int ax1, int ax2,
                                     int flip, int gt_x, int gt_y, int F, int stack_rows,
                                     void* stream) {
-  const bool x_sweeps = ax0 == 2 && ax1 == 0 && ax2 == 1;
+  const bool x_sweeps = ax0 == 2 && ((ax1 == 0 && ax2 == 1) || (ax1 == 1 && ax2 == 0));
   if (!(x_sweeps || (ax2 == 2 && ((ax0 == 0 && ax1 == 1) || (ax0 == 1 && ax1 == 0))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -42,6 +42,17 @@
 //     past the plane that resolves the ray.
 //   - A 32x8 block lies inside one 8x128 ownership tile, so its first warp
 //     tests the tile once for the block.
+//
+// Shard form (_sweep_face_rays' dims_global, plane0, row0, L287-317, called
+// from kinfu_tpu/parallel/sharded.py::_ray_face_local): the volume is one
+// rank's halo-padded slab of a primed volume of Zg planes and Yg rows,
+// whose local plane 0 is global plane plane0 and whose local row 0 is
+// global row row0. A ray marches only the local planes, at their global
+// t, and samples on the global grid; a sample is valid only inside the
+// local rows and inside the global [1, N-2] bounds, and the outward exit
+// tests the global dims. Events outside the buffer stay +inf for the
+// caller's min across ranks. With plane0 = row0 = 0 and the local dims as
+// the global ones, every expression is the unsharded one.
 #include <cmath>
 
 #include <cuda_runtime.h>
@@ -53,14 +64,19 @@ namespace {
 constexpr int kBatch = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float plane_t(int zg, float vsz, float oz) {
-  return static_cast<float>(zg) * vsz - oz;
-}
+// the ray parameter of local plane z, whose global index is plane0 + z
+struct Planes {
+  int plane0;
+  float vsz, oz;
+  __device__ __forceinline__ float t(int z) const {
+    return static_cast<float>(plane0 + z) * vsz - oz;
+  }
+};
 
-// the sample index along one primed axis at plane zg
-__device__ __forceinline__ int axis_index(int zg, float vsz, float oz, float o, float d,
+// the global sample index along one primed axis at local plane z
+__device__ __forceinline__ int axis_index(int z, const Planes& pl, float o, float d,
                                           float inv_vs) {
-  const float ts = fmaxf(plane_t(zg, vsz, oz), 1e-6f);
+  const float ts = fmaxf(pl.t(z), 1e-6f);
   return kinfu::rint_clamped((o + d * ts) * inv_vs);
 }
 
@@ -80,28 +96,37 @@ __device__ int first_plane(int n, Pred pred) {
   return a;
 }
 
-// One primed axis of N voxels: the first plane whose sample lies in [1, N-2]
-// when the ray moves inward (*in_lo), and the first plane of the outward
-// exit (*out), Zp if none; in between the sample is inside.
-__device__ void axis_span(int Zp, int N, float vsz, float oz, float o, float d, float inv_vs,
-                          int* in_lo, int* out) {
+// One primed axis of N global voxels whose valid samples lie in [lo, hi]
+// (the global [1, N-2], or its rows held by the local buffer): the first
+// local plane whose sample lies in [lo, hi] when the ray moves inward
+// (*in_lo), the first past that range (*in_end) and the first of the outward
+// exit of the global volume (*out), Zl if none; the sample is valid on
+// [*in_lo, *in_end). Unsharded, hi + 1 = N - 1 and lo - 1 = 0, so *in_end is
+// *out.
+__device__ void axis_span(int Zl, int N, int lo, int hi, const Planes& pl, float o, float d,
+                          float inv_vs, int* in_lo, int* in_end, int* out) {
+  auto idx = [&](int z) { return axis_index(z, pl, o, d, inv_vs); };
   if (d > 0.0f) {
-    *in_lo = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) >= 1; });
-    *out = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) >= N - 1; });
+    *in_lo = first_plane(Zl, [&](int z) { return idx(z) >= lo; });
+    *in_end = first_plane(Zl, [&](int z) { return idx(z) > hi; });
+    *out = first_plane(Zl, [&](int z) { return idx(z) >= N - 1; });
   } else if (d < 0.0f) {
-    *in_lo = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) <= N - 2; });
-    *out = first_plane(Zp, [&](int z) { return axis_index(z, vsz, oz, o, d, inv_vs) <= 0; });
+    *in_lo = first_plane(Zl, [&](int z) { return idx(z) <= hi; });
+    *in_end = first_plane(Zl, [&](int z) { return idx(z) < lo; });
+    *out = first_plane(Zl, [&](int z) { return idx(z) <= 0; });
   } else {  // the sample stays where it is and never exits
-    const int i = axis_index(0, vsz, oz, o, d, inv_vs);
-    *in_lo = i >= 1 && i <= N - 2 ? 0 : Zp;
-    *out = Zp;
+    const int i = idx(0);
+    *in_lo = i >= lo && i <= hi ? 0 : Zl;
+    *in_end = Zl;
+    *out = Zl;
   }
 }
 
 __global__ void __launch_bounds__(256)
 sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
                   float* __restrict__ hit, float* __restrict__ back, int nZ, int nY, int nX,
-                  int ax0, int ax1, int ax2, int flip, int F) {
+                  int ax0, int ax1, int ax2, int flip, int F, int Zg, int Yg, int plane0,
+                  int row0) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const float ox = prm[0], oy = prm[1], oz = prm[2];
@@ -132,28 +157,34 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
   if (prm[10] != 0.0f && s_owned) {
     const int dims[3] = {nZ, nY, nX};
     const long long strides[3] = {static_cast<long long>(nY) * nX, nX, 1};
-    const int Zp = dims[ax0], Yp = dims[ax1], Xp = dims[ax2];
+    // local primed dims; the lanes (primed x) are never sharded
+    const int Zl = dims[ax0], Yl = dims[ax1], Xp = dims[ax2];
     long long s0 = strides[ax0];
     const long long s1 = strides[ax1], s2 = strides[ax2];
-    long long base = 0;
+    // local row r of the buffer holds global row row0 + r
+    long long base = -static_cast<long long>(row0) * s1;
     if (flip) {
-      base = (Zp - 1) * s0;
+      base += (Zl - 1) * s0;
       s0 = -s0;
     }
+    const Planes pl{plane0, vsz, oz};
     const float dy = (static_cast<float>(i) - c) * inv_f;
     const float dx = (static_cast<float>(j) - c) * inv_f;
     const float inv_vsx = 1.0f / vsx;
     const float inv_vsy = 1.0f / vsy;
 
-    // the interval: t_ok on [p_t, p_c), each axis inside on [*_in, *_out),
-    // an exit from the first plane of either axis's exit
-    const int p_t = first_plane(Zp, [&](int z) { return plane_t(z, vsz, oz) > 1e-6f; });
-    const int p_c = first_plane(Zp, [&](int z) { return plane_t(z, vsz, oz) > t_cover; });
-    int x_in, x_out, y_in, y_out;
-    axis_span(Zp, Xp, vsz, oz, ox, dx, inv_vsx, &x_in, &x_out);
-    axis_span(Zp, Yp, vsz, oz, oy, dy, inv_vsy, &y_in, &y_out);
-    const int v_lo = max(max(p_t, 1), max(x_in, y_in));
-    const int v_hi = min(min(p_c, Zp - 1), min(x_out, y_out)) - 1;
+    // the interval: t_ok on [p_t, p_c), the global planes [1, Zg-2] on
+    // [z_lo, z_end), each axis valid on [*_in, *_end), an exit from the first
+    // plane of either axis's exit
+    const int p_t = first_plane(Zl, [&](int z) { return pl.t(z) > 1e-6f; });
+    const int p_c = first_plane(Zl, [&](int z) { return pl.t(z) > t_cover; });
+    const int z_lo = max(1 - plane0, 0), z_end = min(Zg - 1 - plane0, Zl);
+    int x_in, x_end, x_out, y_in, y_end, y_out;
+    axis_span(Zl, Xp, 1, Xp - 2, pl, ox, dx, inv_vsx, &x_in, &x_end, &x_out);
+    axis_span(Zl, Yg, max(row0, 1), min(row0 + Yl - 1, Yg - 2), pl, oy, dy, inv_vsy, &y_in,
+              &y_end, &y_out);
+    const int v_lo = max(max(p_t, z_lo), max(x_in, y_in));
+    const int v_hi = min(min(p_c, z_end), min(x_end, y_end)) - 1;
     const int e = max(p_t, min(x_out, y_out));
     const bool exits = e < p_c;
 
@@ -166,20 +197,20 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
       short raw[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
-        const int zg = z0 + k;
+        const int z = z0 + k;
         raw[k] = 0;
-        if (zg <= v_hi) {
-          const float ts = fmaxf(plane_t(zg, vsz, oz), 1e-6f);
+        if (z <= v_hi) {
+          const float ts = fmaxf(pl.t(z), 1e-6f);
           const float yv = (oy + dy * ts) * inv_vsy;
           const float xv = (ox + dx * ts) * inv_vsx;
           // rint_clamped's clamp is idle here: the indices lie in [1, N-2]
-          raw[k] = tsdf[base + zg * s0 + __float2int_rn(yv) * s1 + __float2int_rn(xv) * s2];
+          raw[k] = tsdf[base + z * s0 + __float2int_rn(yv) * s1 + __float2int_rn(xv) * s2];
         }
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
-        const int zg = z0 + k;
-        if (done || zg > v_hi) break;
+        const int z = z0 + k;
+        if (done || z > v_hi) break;
         const float f_new = static_cast<float>(raw[k]) * kinfu::kInvShort;
         // a NaN previous sample fails both comparisons (no event)
         const bool front = fp > 0.0f && f_new < 0.0f;
@@ -187,15 +218,15 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
         if (front) {
           const float denom = fp - f_new;
           const float frac = fp / (fabsf(denom) < 1e-30f ? 1e-30f : denom);
-          ht = plane_t(zg, vsz, oz) - vsz + vsz * frac;
+          ht = pl.t(z) - vsz + vsz * frac;
         }
-        if (bk) bt = plane_t(zg, vsz, oz);
+        if (bk) bt = pl.t(z);
         fp = f_new;
         done = front || bk;  // resolved
       }
     }
     // unresolved: the outward exit at e, whose sample is not valid
-    if (!done && exits) bt = plane_t(e, vsz, oz);
+    if (!done && exits) bt = pl.t(e);
   }
   hit[static_cast<long long>(i) * F + j] = ht;
   back[static_cast<long long>(i) * F + j] = bt;
@@ -205,7 +236,7 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
 
 extern "C" int kinfu_sweep_rays(const void* tsdf, const void* prm, void* hit, void* back,
                                 int nZ, int nY, int nX, int ax0, int ax1, int ax2, int flip,
-                                int F, void* stream) {
+                                int F, int Zg, int Yg, int plane0, int row0, void* stream) {
   // a block must lie inside one 8x128 ownership tile
   if (F % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(32, 8);
@@ -213,6 +244,6 @@ extern "C" int kinfu_sweep_rays(const void* tsdf, const void* prm, void* hit, vo
   sweep_rays_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const short*>(tsdf), static_cast<const float*>(prm),
       static_cast<float*>(hit), static_cast<float*>(back), nZ, nY, nX, ax0, ax1, ax2, flip,
-      F);
+      F, Zg, Yg, plane0, row0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,12 @@ footprint (`plane_footprint`, the rectangle of primed voxels that can pass
 the face-pixel and ownership tests and see the camera's frustum), one CUDA
 thread per voxel. `sweep_face_plain` is its plain PyTorch version.
 
+K3's shard form is the same launch on one rank's slab of a sharded volume
+(kinfu_tpu/parallel/sharded.py:432-460): the slab's origin is folded into
+the pose, so the slab is a volume of its own, and the frames are the
+`shard_dim` set of `face_frames`, whose Y-sharded +-x faces sweep in the
+(2, 1, 0) frame (`integrate_faces(..., shard_dim=)`).
+
 Differences of form from the TPU kernel, none of result:
   - no prime/unprime transposes of the volume (L422-431): the kernel maps
     its natural voxel index to primed coordinates itself;
@@ -352,7 +358,8 @@ def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _sweep_axes(device):
-    """[6, 3] f32: each face frame's sweep direction (D's last row)."""
+    """[6, 3] f32: each face frame's sweep direction (D's last row), which
+    every frame set of `face_frames` shares."""
     return constant(np.stack([fr.D[2] for fr in face_frames()]), torch.float32, device)
 
 
@@ -377,15 +384,23 @@ def faces_needed(vol2cam: Pose, intr: Intrinsics, margin: float = _FACE_MARGIN) 
 
 def integrate_faces(vol: TSDFVolume, depth_m: torch.Tensor, col_packed: torch.Tensor,
                     vol2cam: Pose, intr: Intrinsics, params: KinFuParams, spec: FaceSpec,
-                    gates: torch.Tensor, names: tuple | None = None) -> None:
+                    gates: torch.Tensor, names: tuple | None = None,
+                    shard_dim: int | None = None) -> None:
     """Build the six face stacks in one launch of K2, then sweep each face
     into the volume (K3), in place (the counterpart of `_sweep_face`,
     pallas_integrate.py:393-575, once per face). Nothing changes for a face
     whose device flag gates[f] is 0; `names`, when given, limits the sweeps
-    to those faces (the stacks follow the gates)."""
+    to those faces (the stacks follow the gates).
+
+    The shard form: `vol` is one rank's slab of a volume sharded along
+    `shard_dim`, and `vol2cam` has the slab's origin folded in
+    (`volume/integrate.py::fold_shard_origin`), so the slab is a volume of
+    its own seen from a shifted camera; the frames are the `shard_dim` set
+    of `face_frames`, and the faces' geometry, footprints and plane tables
+    come from the slab's dims (kinfu_tpu/parallel/sharded.py:432-460)."""
     dims_xyz = tuple(reversed(vol.tsdf.shape))
     vs = params.voxel_size
-    frames = face_frames()
+    frames = face_frames(shard_dim)
     geo = [face_geometry(vol2cam, frame, dims_xyz, vs) for frame in frames]
     prm6 = torch.stack([face_params(A, intr, gates[f], spec) for f, (A, _) in enumerate(geo)])
     face_range, face_color, r_max = build_faces(depth_m, col_packed, prm6, spec)
@@ -409,13 +424,15 @@ def integrate_warped(
     spec: FaceSpec | None = None,
     faces: str | tuple = "auto",
     gate: torch.Tensor | None = None,
+    shard_dim: int | None = None,
 ) -> TSDFVolume:
     """Fuse one frame into `vol` in place via face warps + sweeps.
 
     faces="auto" runs every face the frustum touches, gated by the device
     flags of `faces_needed` (no host read); an explicit tuple of face names
     runs exactly those sweeps. `gate`, a device bool, joins every face's
-    flag: where it is False no face writes anything."""
+    flag: where it is False no face writes anything. `shard_dim` selects
+    the frame set of a slab (`integrate_faces`)."""
     spec = spec or default_face_spec()
     col_packed = pack_rgb(color_rgb)
     names = None
@@ -426,7 +443,8 @@ def integrate_warped(
         gates = pinned_gates(names, vol.tsdf.device)
     if gate is not None:
         gates = gates & gate
-    integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec, gates, names)
+    integrate_faces(vol, depth_m, col_packed, vol2cam, intr, params, spec, gates, names,
+                    shard_dim)
     return vol
 
 

@@ -20,6 +20,14 @@ ownership (8x128 face tiles with any pixel inside the padded cone). It
 drops what only skipped work: the occupancy pooling, the summed-area
 tables and the visit lists (L321-443).
 
+K4's shard form (`sweep_rays(..., shard)`, `Shard`) marches a rank's
+halo-padded slab of the primed volume at the slab's global planes and
+rows (`_sweep_face_rays`' dims_global, plane0, row0, L287-317): samples
+stay on the global grid, a sample outside the slab's rows is not valid,
+the [1, N-2] bounds and the outward exit are the global volume's, and the
+sharded raycast (parallel/sharded.py) takes the minimum of the ranks'
+events.
+
 K5 (`resample_composite`, csrc/resample_face.cu) replaces
 `_resample_kernel` (L579-624) and the per-face glue around it: one launch
 a frame, one thread per camera pixel, finds the face that owns the pixel's
@@ -129,33 +137,59 @@ def _own_mask(spec: RaySpec, own_tan: torch.Tensor, device) -> torch.Tensor:
     return row_ok[:, None] & col_ok[None, :]
 
 
+class Shard(NamedTuple):
+    """Where a halo-padded slab lies in the primed volume of one face
+    (`_sweep_face_rays`' dims_global, plane0, row0,
+    kinfu_tpu/ops/pallas_raycast.py:287-317): the global plane and row
+    counts, and the global indices of the slab's local plane 0 and row 0.
+    `None` in their place is the whole volume."""
+
+    Zg: int
+    Yg: int
+    plane0: int
+    row0: int
+
+
+def _shard(shard: Shard | None, dims_p) -> Shard:
+    return Shard(dims_p[0], dims_p[1], 0, 0) if shard is None else shard
+
+
 def sweep_rays_plain(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
-                     spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+                     spec: RaySpec, shard: Shard | None = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4: (hit_t, back_t) [F, F] f32 in the
-    t = z' - o'_z parameterization, +inf (1e30) where there is no event."""
-    ht, bt, _ = _march(tsdf, frame, prm, spec)
+    t = z' - o'_z parameterization, +inf (1e30) where there is no event.
+    With `shard`, `tsdf` is a slab of the volume (`Shard`)."""
+    ht, bt, _ = _march(tsdf, frame, prm, spec, shard=shard)
     return ht, bt
 
 
 def sweep_rays_work(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
-                    spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+                    spec: RaySpec, shard: Shard | None = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What K4 must do on these inputs, as device counts: (distinct voxels
     the rays sample, ray-plane steps they march). A ray marches plane by
     plane until it resolves and samples the voxel of each valid plane on
     its way, so the counts depend on the surface. chip_smoke.py turns them
     into K4's bound."""
     touched = torch.zeros(tsdf.numel(), dtype=torch.bool, device=tsdf.device)
-    _, _, steps = _march(tsdf, frame, prm, spec, touched)
+    _, _, steps = _march(tsdf, frame, prm, spec, touched, shard)
     return touched.sum(), steps
 
 
 def _march(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor, spec: RaySpec,
-           touched: torch.Tensor | None = None):
+           touched: torch.Tensor | None = None, shard: Shard | None = None):
     """The plain march: (hit_t, back_t, ray-plane steps of the live rays).
     Where `touched` (bool, tsdf.numel()) is given, it marks every voxel of
-    the primed volume that a live ray samples."""
+    the primed volume that a live ray samples. With `shard`, the march
+    visits the slab's local planes at their global t, samples on the global
+    grid, takes a sample inside the slab's rows and the global [1, N-2]
+    bounds as valid, and tests the exit against the global dims
+    (pallas_raycast.py:180-273 with geom_ref)."""
     t_p = prime(tsdf, frame)
-    Zp, Yp, Xp = t_p.shape
+    Zl, Yl, Xp = t_p.shape
+    Zg, Yg, plane0, row0 = _shard(shard, (Zl, Yl))
+    y_lo, y_end = max(1, row0), min(Yg - 1, row0 + Yl)
     dev = tsdf.device
     F = spec.size
     ox, oy, oz, vsx, vsy, vsz = prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]
@@ -175,7 +209,8 @@ def _march(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor, spec: RaySpe
     flat = t_p.reshape(-1)
     steps = torch.zeros((), dtype=torch.int64, device=dev)
 
-    for zg in range(Zp):
+    for zl in range(Zl):
+        zg = plane0 + zl
         t_m = float(zg) * vsz - oz
         t_ok = (t_m > 1e-6) & (t_m <= t_cover)
         ts = torch.clamp(t_m, min=1e-6)
@@ -183,11 +218,11 @@ def _march(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor, spec: RaySpe
         xv = (ox + dx * ts) * inv_vsx
         yi = rint_index(yv)
         xi = rint_index(xv)
-        lin = (zg * Yp + yi.clamp(0, Yp - 1)) * Xp + xi.clamp(0, Xp - 1)
+        lin = (zl * Yl + (yi - row0).clamp(0, Yl - 1)) * Xp + xi.clamp(0, Xp - 1)
         f_new = flat[lin].float() * (1.0 / SHORTMAX)
-        yok = (yi >= 1) & (yi < Yp - 1)
+        yok = (yi >= y_lo) & (yi < y_end)
         xok = (xi >= 1) & (xi < Xp - 1)
-        valid = t_ok & (1 <= zg < Zp - 1) & yok & xok
+        valid = t_ok & (1 <= zg < Zg - 1) & yok & xok
 
         live = alive & (ht >= _INF) & (bt >= _INF)
         if touched is not None:
@@ -203,7 +238,7 @@ def _march(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor, spec: RaySpe
         exit_out = (
             ((xi >= Xp - 1) & (dx > 0))
             | ((xi <= 0) & (dx < 0))
-            | ((yi >= Yp - 1) & (dy > 0))
+            | ((yi >= Yg - 1) & (dy > 0))
             | ((yi <= 0) & (dy < 0))
         ) & t_ok
         bt = torch.where(live & ~front & ~back & exit_out, t_m, bt)
@@ -224,8 +259,9 @@ def _first_plane(n: int, pred, shape, device) -> torch.Tensor:
     return a
 
 
-def ray_plane_interval(prm: torch.Tensor, frame: FaceFrame, dims_p,
-                       spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def ray_plane_interval(prm: torch.Tensor, frame: FaceFrame, dims_p, spec: RaySpec,
+                       shard: Shard | None = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per face ray, the planes [z_first, z_last] (int64 [F, F]) that K4
     marches, and the last plane of their valid run, v_last: from the first
     plane where the sample can be valid or an outward exit can fire, to the
@@ -238,8 +274,12 @@ def ray_plane_interval(prm: torch.Tensor, frame: FaceFrame, dims_p,
     z_last > v_last). Rays of unowned tiles and of a gated-off face get
     empty intervals (z_first = Zp, z_last = v_last = -1).
     csrc/sweep_rays.cu computes the same in the kernel; the tests use this
-    twin."""
+    twin. With `shard`, `dims_p` are the slab's local dims and the planes
+    are local: each interval is clipped to the slab, the samples stay on
+    the global grid, a sample outside the slab's rows is not valid, and the
+    exit and the [1, N-2] bounds are the global volume's."""
     Zp, Yp, Xp = dims_p
+    Zg, Yg, plane0, row0 = _shard(shard, dims_p)
     dev = prm.device
     F = spec.size
     ox, oy, oz, vsx, vsy, vsz = prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]
@@ -249,30 +289,34 @@ def ray_plane_interval(prm: torch.Tensor, frame: FaceFrame, dims_p,
     dx = ((pix - c) * (1.0 / f))[None, :].expand(F, F)
 
     def t_m(z):
-        return z.float() * vsz - oz
+        return (z + plane0).float() * vsz - oz
 
     def first(pred):
         return _first_plane(Zp, pred, (F, F), dev)
 
-    def span(o, d, inv_vs, n):
-        """(first plane inside [1, n-2] moving inward, first plane of the
-        outward exit), Zp where there is none."""
+    def span(o, d, inv_vs, n, lo, hi):
+        """(first plane inside [lo, hi] moving inward, first plane past it,
+        first plane of the outward exit of [0, n)), Zp where there is
+        none."""
         def idx(z):
             return rint_index((o + d * torch.clamp(t_m(z), min=1e-6)) * inv_vs)
-        up_in, up_out = first(lambda z: idx(z) >= 1), first(lambda z: idx(z) >= n - 1)
-        dn_in, dn_out = first(lambda z: idx(z) <= n - 2), first(lambda z: idx(z) <= 0)
+        up = first(lambda z: idx(z) >= lo), first(lambda z: idx(z) > hi)
+        dn = first(lambda z: idx(z) <= hi), first(lambda z: idx(z) < lo)
+        up_out, dn_out = first(lambda z: idx(z) >= n - 1), first(lambda z: idx(z) <= 0)
         i0 = idx(torch.zeros((F, F), dtype=torch.int64, device=dev))
-        flat_in = torch.where((i0 >= 1) & (i0 <= n - 2), 0, Zp)
+        flat_in = torch.where((i0 >= lo) & (i0 <= hi), 0, Zp)
         zp = torch.full_like(flat_in, Zp)
-        return (torch.where(d > 0, up_in, torch.where(d < 0, dn_in, flat_in)),
+        return (torch.where(d > 0, up[0], torch.where(d < 0, dn[0], flat_in)),
+                torch.where(d > 0, up[1], torch.where(d < 0, dn[1], zp)),
                 torch.where(d > 0, up_out, torch.where(d < 0, dn_out, zp)))
 
     p_t = first(lambda z: t_m(z) > 1e-6)
     p_c = first(lambda z: t_m(z) > t_cover)
-    x_in, x_out = span(ox, dx, 1.0 / vsx, Xp)
-    y_in, y_out = span(oy, dy, 1.0 / vsy, Yp)
-    v_lo = torch.maximum(torch.maximum(p_t.clamp(min=1), x_in), y_in)
-    v_hi = torch.minimum(torch.minimum(p_c.clamp(max=Zp - 1), x_out), y_out) - 1
+    x_in, x_end, x_out = span(ox, dx, 1.0 / vsx, Xp, 1, Xp - 2)
+    y_in, y_end, y_out = span(oy, dy, 1.0 / vsy, Yg, max(row0, 1), min(row0 + Yp - 1, Yg - 2))
+    z_lo, z_end = max(1 - plane0, 0), min(Zg - 1 - plane0, Zp)
+    v_lo = torch.maximum(torch.maximum(p_t.clamp(min=z_lo), x_in), y_in)
+    v_hi = torch.minimum(torch.minimum(p_c.clamp(max=z_end), x_end), y_end) - 1
     e = torch.maximum(p_t, torch.minimum(x_out, y_out))
     exits = e < p_c
     has_valid = v_lo <= v_hi
@@ -284,13 +328,16 @@ def ray_plane_interval(prm: torch.Tensor, frame: FaceFrame, dims_p,
 
 
 def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
-               spec: RaySpec) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: march every face ray through the volume seen from `frame`. CPU
+               spec: RaySpec, shard: Shard | None = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: march every face ray through the volume seen from `frame`, or,
+    with `shard`, through a halo-padded slab of it (its shard form). CPU
     tensors take the plain version; CUDA tensors launch csrc/sweep_rays.cu."""
     if tsdf.device.type == "cpu":
-        return sweep_rays_plain(tsdf, frame, prm, spec)
+        return sweep_rays_plain(tsdf, frame, prm, spec, shard)
     kernels.library()
     Z, Y, X = tsdf.shape
+    sh = _shard(shard, tuple(tsdf.shape[a] for a in frame.axes))
     kernels.check_cuda("sweep_rays", tsdf, prm)
     kernels.check("sweep_rays", tsdf, torch.int16, (Z, Y, X))
     kernels.check("sweep_rays", prm, torch.float32, (16,))
@@ -300,7 +347,7 @@ def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
     kernels.launch(
         "kinfu_sweep_rays",
         kernels.ptr(tsdf), kernels.ptr(prm), kernels.ptr(hit), kernels.ptr(back),
-        Z, Y, X, *frame.axes, int(frame.flip), F,
+        Z, Y, X, *frame.axes, int(frame.flip), F, *sh,
     )
     return hit, back
 
@@ -409,9 +456,10 @@ _N_FACES = len(face_frames())
 
 
 @functools.lru_cache(maxsize=None)
-def _composite_consts(dims_xyz, voxel_size, device):
-    """(D [6,3,3], the constant columns [6,12] of the block) on `device`."""
-    frames = face_frames()
+def _composite_consts(dims_xyz, voxel_size, shard_dim, device):
+    """(D [6,3,3], the constant columns [6,12] of the block) on `device`,
+    for the frame set `face_frames(shard_dim)`."""
+    frames = face_frames(shard_dim)
     tail = np.zeros((len(frames), 12), np.float32)
     for f, fr in enumerate(frames):
         tail[f, 0:3] = primed_offset(fr, dims_xyz, voxel_size)
@@ -422,12 +470,15 @@ def _composite_consts(dims_xyz, voxel_size, device):
             constant(tail, torch.float32, device))
 
 
-def composite_params(cam2vol: Pose, params: KinFuParams) -> torch.Tensor:
+def composite_params(cam2vol: Pose, params: KinFuParams,
+                     shard_dim: int | None = None) -> torch.Tensor:
     """K5's device parameter block f32[6, COMPOSITE_COLS] in face_frames()
     order; column 9:12 is each face's primed camera origin D org + off,
-    which the face's sweep (K4) and shading take too."""
+    which the face's sweep (K4) and shading take too. The frames are the
+    `shard_dim` set of `face_frames`, in the global volume of `params`."""
     R, org = cam2vol
-    D, tail = _composite_consts(tuple(params.volume_dims), tuple(params.voxel_size), R.device)
+    D, tail = _composite_consts(tuple(params.volume_dims), tuple(params.voxel_size),
+                                shard_dim, R.device)
     A = D @ R  # camera pixel ray -> primed direction
     org_p = D @ org + tail[:, 0:3]
     return torch.cat([A.reshape(-1, 9), org_p, tail], dim=1)

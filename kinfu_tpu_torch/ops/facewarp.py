@@ -97,14 +97,21 @@ class FaceFrame(NamedTuple):
     gt_y: bool
 
 
-def face_frames() -> Tuple[FaceFrame, ...]:
-    """The six cube-map sweep frames (kinfu_tpu/ops/facewarp.py:117-159 with
-    shard_dim=None; the sharded frame set comes with the sharded step).
+@functools.lru_cache(maxsize=None)
+def face_frames(shard_dim: int | None = None) -> Tuple[FaceFrame, ...]:
+    """The six cube-map sweep frames (kinfu_tpu/ops/facewarp.py:117-160).
 
     Exclusive voxel ownership (z>y>x priority on ties):
       z owns iff |dz| >= |dy| and |dz| >= |dx|
       y owns iff |dy| >  |dz| and |dy| >= |dx|
       x owns iff |dx| >  |dz| and |dx| >  |dy|
+
+    `shard_dim` picks the frame set of a volume sharded along that natural
+    array dim (parallel/sharded.py): the sharded dim must be a primed plane
+    or row axis of every face, never the lane axis. The standard frames
+    serve None and 0 (volume Z); for 1 (volume Y) the +-x faces take the
+    axes (2, 1, 0), x' = z and y' = y, so that rows carry Y. Both of their
+    ownership comparisons are strict, so the partition is the same.
     """
     ex, ey, ez = np.eye(3, dtype=np.float32)
     out = []
@@ -114,16 +121,21 @@ def face_frames() -> Tuple[FaceFrame, ...]:
                              sign < 0, gt_x=False, gt_y=False))
         out.append(FaceFrame(f"{s}y", np.stack([ex, ez, sign * ey]), (1, 0, 2),
                              sign < 0, gt_x=False, gt_y=True))
-        out.append(FaceFrame(f"{s}x", np.stack([ey, ez, sign * ex]), (2, 0, 1),
-                             sign < 0, gt_x=True, gt_y=True))
+        if shard_dim == 1:
+            out.append(FaceFrame(f"{s}x", np.stack([ez, ey, sign * ex]), (2, 1, 0),
+                                 sign < 0, gt_x=True, gt_y=True))
+        else:
+            out.append(FaceFrame(f"{s}x", np.stack([ey, ez, sign * ex]), (2, 0, 1),
+                                 sign < 0, gt_x=True, gt_y=True))
     return tuple(out)
 
 
-def warp_dims_ok(shape_zyx: Tuple[int, int, int]) -> bool:
+def warp_dims_ok(shape_zyx: Tuple[int, int, int], shard_dim: int | None = None) -> bool:
     """The JAX package's eligibility rule for the warped kernels (primed
-    Zp % 8, Yp % 8, Xp % 128 for every face). The CUDA kernels take any
-    shape; the rule is kept so that "auto" picks the same path as JAX."""
-    for fr in face_frames():
+    Zp % 8, Yp % 8, Xp % 128 for every face of the `shard_dim` frame set).
+    The CUDA kernels take any shape; the rule is kept so that "auto" picks
+    the same path as JAX."""
+    for fr in face_frames(shard_dim):
         Zp, Yp, Xp = (shape_zyx[a] for a in fr.axes)
         if Zp % 8 or Yp % 8 or Xp % 128:
             return False
@@ -146,7 +158,8 @@ def primed_voxel_size(frame: FaceFrame, voxel_size) -> Tuple[float, float, float
 
 @functools.lru_cache(maxsize=None)
 def _frame_tensors(name: str, axes, flip: bool, dims_xyz, voxel_size, device):
-    frame = next(fr for fr in face_frames() if (fr.name, fr.axes, fr.flip) == (name, axes, flip))
+    frame = next(fr for fr in face_frames() + face_frames(1)
+                 if (fr.name, fr.axes, fr.flip) == (name, axes, flip))
     return (constant(frame.D, torch.float32, device),
             constant(primed_offset(frame, dims_xyz, voxel_size), torch.float32, device))
 

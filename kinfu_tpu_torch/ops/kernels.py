@@ -50,7 +50,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kinfu_build_faces": [_P] * 6 + [_I] * 4 + [_P],
     "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P],
-    "kinfu_sweep_rays": [_P] * 4 + [_I] * 8 + [_P],
+    "kinfu_sweep_rays": [_P] * 4 + [_I] * 12 + [_P],
     "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P],
     "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P],
     "kinfu_icp_solve": [_I] + [_P] * 12 + [_F] * 2 + [_I] * 2 + [_P],
@@ -80,20 +80,24 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def build(out_dir: Path = BUILD_DIR) -> Path:
+def build(out_dir: Path = BUILD_DIR, load_only: bool = False) -> Path:
     """Compile every csrc/*.cu in parallel and link one shared library.
-    Returns its path; reuses an earlier build of the same sources."""
-    nvcc = find_nvcc()
+    Returns its path; reuses an earlier build of the same sources, and with
+    `load_only` raises when there is none (a process that must not race
+    another on the build directory)."""
     cu, headers = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cu + headers:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     tag = digest.hexdigest()[:16]
-    out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"libkinfu_kernels_{tag}.so"
     if lib_path.is_file():
         return lib_path
+    if load_only:
+        raise RuntimeError(f"{lib_path} is not built: build the kernels before loading them")
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
     for src in cu:
         obj = out_dir / f"{src.stem}_{tag}.o"
@@ -119,11 +123,11 @@ def build(out_dir: Path = BUILD_DIR) -> Path:
     return lib_path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+def library(load_only: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library, built at first use unless `load_only`."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(load_only=load_only)))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -140,13 +140,35 @@ def kinfu_step(
     one (on the CPU, "auto" is the gather integrate and the "hier"
     raycast, as in the JAX package); either ICP mode
     (`tracking/icp.py::resolve_icp_mode`)."""
+
+    def track(vmaps, nmaps):
+        return rigid_icp(vmaps, nmaps, state.model_vmaps, state.model_nmaps, intr, params)
+
+    def update(vol, depth_m, vol2cam, cam2vol, good):
+        if fused_supported(vol.tsdf.shape, params, vol.tsdf.device):
+            return fused_update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
+                                reset_on_fail=auto_reset)
+        return _update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
+                       reset_on_fail=auto_reset)
+
+    return step_with(state, depth_mm, params, intr, track, update, auto_reset)
+
+
+def step_with(state: KinFuState, depth_mm: torch.Tensor, params: KinFuParams,
+              intr: Intrinsics, track, update, auto_reset: bool = True
+              ) -> Tuple[KinFuState, StepOutput]:
+    """The step around its two parts: `track(vmaps, nmaps)`, the ICP of the
+    measurement pyramids against the state's model maps (an `ICPResult`),
+    and `update(vol, depth_m, vol2cam, cam2vol, good)`, the volume update,
+    which returns (vol, vmap, nmap). `kinfu_step` passes the single-device
+    ones, the sharded step (parallel/sharded.py) the rank's."""
     dev = state.vol.tsdf.device
     vol_pose = _volume_pose(params, dev)
 
     dmaps, vmaps, nmaps = _measurement(depth_mm, params, intr)
 
     is_first = state.frame_count == 1
-    icp = rigid_icp(vmaps, nmaps, state.model_vmaps, state.model_nmaps, intr, params)
+    icp = track(vmaps, nmaps)
     good = (icp.ok & ~is_first) | is_first
 
     # frame 1 fuses at the held pose; tracked frames right-multiply the
@@ -155,14 +177,7 @@ def kinfu_step(
     vol2cam = compose(inverse(new_pose), vol_pose)
     cam2vol = compose(inverse(vol_pose), new_pose)
 
-    if fused_supported(state.vol.tsdf.shape, params, dev):
-        vol_n, rv, rn = fused_update(
-            state.vol, dmaps[0], color_rgb, vol2cam, cam2vol, intr, params, good,
-            reset_on_fail=auto_reset,
-        )
-    else:
-        vol_n, rv, rn = _update(state.vol, dmaps[0], color_rgb, vol2cam, cam2vol,
-                                intr, params, good, reset_on_fail=auto_reset)
+    vol_n, rv, rn = update(state.vol, dmaps[0], vol2cam, cam2vol, good)
     mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
     mv = tuple(torch.where(is_first, a, b) for a, b in zip(vmaps, mv))
     mn = tuple(torch.where(is_first, a, b) for a, b in zip(nmaps, mn))

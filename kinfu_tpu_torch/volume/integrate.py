@@ -46,18 +46,35 @@ def _pick_z_chunk(z: int) -> int:
     return 1
 
 
-def resolve_integrate_mode(params: KinFuParams, shape_zyx, device) -> str:
+def resolve_integrate_mode(params: KinFuParams, shape_zyx, device,
+                           shard_dim: int | None = None) -> str:
     """"warped" or "gather": "auto" is "warped" on a CUDA device, "gather"
-    elsewhere, and "warped" needs `warp_dims_ok` (the JAX package's tiling
-    rule; an untileable volume takes the gather path, as in JAX)."""
+    elsewhere, and "warped" needs `warp_dims_ok` of the (local) shape in
+    the `shard_dim` frame set (the JAX package's tiling rule; an untileable
+    volume takes the gather path, as in JAX)."""
     from kinfu_tpu_torch.ops.facewarp import warp_dims_ok
 
     mode = params.integrate_mode
     if mode == "auto":
         mode = "warped" if torch.device(device).type == "cuda" else "gather"
-    if mode == "warped" and not warp_dims_ok(tuple(shape_zyx)):
+    if mode == "warped" and not warp_dims_ok(tuple(shape_zyx), shard_dim):
         mode = "gather"
     return mode
+
+
+def fold_shard_origin(vol2cam: Pose, z_offset: int, shard_dim: int,
+                      voxel_size) -> Pose:
+    """`vol2cam` of a slab whose first voxel along natural array dim
+    `shard_dim` (0 = volume Z, 1 = volume Y) is global index `z_offset`:
+    the translation moved by the slab origin, t + R[:, axis] * offset, so
+    that the slab fuses as a volume of its own seen from that camera
+    (kinfu_tpu/volume/integrate.py:80-96, parallel/sharded.py:436-444)."""
+    if z_offset == 0:
+        return vol2cam
+    xyz_axis = 2 - shard_dim
+    R, t = vol2cam
+    off_m = float(np.float32(z_offset) * np.float32(voxel_size[xyz_axis]))
+    return Pose(R, t + R[:, xyz_axis] * off_m)
 
 
 def integrate(
@@ -77,24 +94,31 @@ def integrate(
     `vol2cam` maps volume coordinates to the camera frame. `gate`, a device
     bool, leaves the volume unchanged where False: in warped mode it joins
     the face flags that K2 and K3 read, in gather mode the update mask.
-    A shard's slab (`z_offset`, `shard_dim`) needs the sharded step."""
-    if shard_dim != 0 or not (isinstance(z_offset, int) and z_offset == 0):
-        raise NotImplementedError(
-            "integrating one shard of a distributed volume needs the sharded step, "
-            "which is not ported yet: ROADMAP.md queue 1, item 12")
-    mode = resolve_integrate_mode(params, vol.tsdf.shape, vol.tsdf.device)
+    `vol` may be one rank's slab of a sharded volume (parallel/): its first
+    voxel along natural array dim `shard_dim` (0 = volume Z, 1 = volume Y)
+    is global index `z_offset` (a host int). The warped path folds the
+    offset into the pose (`fold_shard_origin`), the gather path into the
+    voxel positions, as the JAX dispatcher does."""
+    mode = resolve_integrate_mode(params, vol.tsdf.shape, vol.tsdf.device, shard_dim)
     if mode == "warped":
         from kinfu_tpu_torch.ops.face_integrate import integrate_warped
 
-        return integrate_warped(vol, depth_m, color_rgb, vol2cam, intr, params, gate=gate)
-    integrate_gather(vol, depth_m, color_rgb, vol2cam, intr, params, gate)
+        return integrate_warped(
+            vol, depth_m, color_rgb,
+            fold_shard_origin(vol2cam, z_offset, shard_dim, params.voxel_size),
+            intr, params, gate=gate, shard_dim=shard_dim)
+    integrate_gather(vol, depth_m, color_rgb, vol2cam, intr, params, gate, z_offset,
+                     shard_dim)
     return vol
 
 
 def integrate_gather(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Tensor,
                      vol2cam: Pose, intr: Intrinsics, params: KinFuParams,
-                     gate: torch.Tensor | None = None) -> None:
-    """The per-voxel gather pass, in place, in Z-chunks. Where the JAX
+                     gate: torch.Tensor | None = None, z_offset: int = 0,
+                     shard_dim: int = 0) -> None:
+    """The per-voxel gather pass, in place, in Z-chunks; a slab's global
+    offset `z_offset` shifts its Z chunks (`shard_dim` 0) or its rows' y
+    (1), in the JAX operation order (L117-126). Where the JAX
     package divides by a static value (the focal lengths, the truncation
     distance) this multiplies by its float32 reciprocal, and where it
     divides by a square root it multiplies by the root's reciprocal, as
@@ -115,7 +139,11 @@ def integrate_gather(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Te
     cz = _pick_z_chunk(Z)
 
     f32 = torch.float32
-    yy = (torch.arange(Y, dtype=f32, device=dev) * vsy)[None, :, None]
+    yy = torch.arange(Y, dtype=f32, device=dev) * vsy
+    if shard_dim == 1:
+        yy = yy + float(np.float32(z_offset) * np.float32(vsy))
+        z_offset = 0
+    yy = yy[None, :, None]
     xx = (torch.arange(X, dtype=f32, device=dev) * vsx)[None, None, :]
     zz_local = (torch.arange(cz, dtype=f32, device=dev) * vsz)[:, None, None]
     # per-row terms of the camera-frame position, in the JAX operation order
@@ -125,8 +153,8 @@ def integrate_gather(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Te
     for z0 in range(0, Z, cz):
         sl = slice(z0, z0 + cz)
         tsdf_c, weight_c, color_c = vol.tsdf[sl], vol.weight[sl], vol.color[sl]
-        # float32(z0) * float32(vsz), as the JAX chunk offset rounds
-        pz = zz_local + float(np.float32(z0) * np.float32(vsz))
+        # float32(z0 + z_offset) * float32(vsz), as the JAX chunk offset rounds
+        pz = zz_local + float(np.float32(z0 + z_offset) * np.float32(vsz))
         vcx, vcy, vcz = (rx[i] + R[i, 2] * pz + t[i] for i in range(3))
 
         in_front = vcz > 0

@@ -394,18 +394,45 @@ def test_cli_eval_matches_jax(cli_run, fmt):
     (["run", "--data", "unused", "--device", "cpu", "--streaming"], "item 11"),
     (["run", "--device", "cpu", "--relocalize"], None),
     (["run", "--device", "cpu", "--pose-graph"], None),
-    (["sweep"], "item 12"),
+    (["sweep"], None),
     (["bench"], "item 7"),
 ], ids=["streaming", "relocalize", "pose-graph", "sweep", "bench"])
 def test_cli_unported_modes_raise(argv, item, tmp_path, capsys):
     """The modes the port lacks raise, naming their ROADMAP item; the
     ported `--relocalize` and `--pose-graph` run over two PNG frames on the
-    CPU and print their keyframe (and closure) counts."""
+    CPU and print their keyframe (and closure) counts, and `sweep` runs two
+    ranks over two 2-frame PNG sequences and prints one JSON line per
+    (sequence, config), each sequence's poses those of `run`."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
             cli.main(argv)
         return
     data, _ = _write_bundled(tmp_path / "seq", 2)
+    if argv == ["sweep"]:
+        import shutil
+
+        copy = str(tmp_path / "copy")
+        shutil.copytree(data, copy)
+        out = tmp_path / "poses"
+        # 64^3: the CPU's non-fused step, the quick one here
+        assert cli.main(["sweep", "--devices", "2", "--synthetic", "0", "--data", data,
+                         "--data", copy, "--frames", "2", "--dims", "64", "--device", "cpu",
+                         "--levels", "2", "--icp-iters", "3,4", "--save-poses",
+                         str(out)]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        assert [(r["sequence"], r["dim"], r["frames"], r["tracking_failures"])
+                for r in rows] == [("seq", 64, 2, 0), ("copy", 64, 2, 0)]
+        assert "# sweep: 2 sequences x 1 configs on 2 ranks (gloo, cpu)" in lines
+        poses = tmp_path / "run_poses.txt"
+        assert cli.main(["run", "--data", data, "--frames", "2", "--dim", "64", "--levels", "2",
+                         "--icp-iters", "3,4", "--device", "cpu", "--quiet", "--save-poses",
+                         str(poses)]) == 0
+        want = np.stack(read_poses_reference_format(str(poses)))
+        for name in ("seq", "copy"):
+            got = np.stack(read_poses_reference_format(str(out / f"{name}_64.txt")))
+            np.testing.assert_allclose(got, want, atol=1e-5, err_msg=name)
+        return
     assert cli.main([*argv, "--data", data, "--frames", "2", *CLI_FLAGS, "--quiet"]) == 0
     out = capsys.readouterr().out
     assert "done: 2 frames, 0 tracking failures" in out

@@ -151,7 +151,10 @@ def test_gather_integrate_matches_jax_bit_for_bit():
 
 
 def test_gather_integrate_gate_leaves_the_volume():
-    """gate=False changes no voxel; gate=True is the ungated call."""
+    """gate=False changes no voxel; gate=True is the ungated call. A Z slab
+    integrated with its global `z_offset` is that slab of the whole
+    volume, bit for bit (the gather path folds the offset into its chunk
+    positions, as the whole volume's chunks compute them)."""
     T, d, c = _scene_frames([np.eye(4, dtype=np.float32)])[0]
     depth = torch.as_tensor(d * np.float32(PARAMS.depth_scale))
     a = create_volume(PARAMS.volume_dims, device="cpu")
@@ -164,8 +167,11 @@ def test_gather_integrate_gate_leaves_the_volume():
     integrate(b, depth, torch.as_tensor(c), _vol2cam(T, PARAMS), INTR, PARAMS)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        integrate(a, depth, torch.as_tensor(c), _vol2cam(T, PARAMS), INTR, PARAMS, z_offset=8)
+    slab = create_volume((64, 64, 48), device="cpu")
+    integrate(slab, depth, torch.as_tensor(c), _vol2cam(T, PARAMS), INTR, PARAMS, z_offset=16)
+    for x, y in zip(slab, b):
+        assert torch.equal(x, y[16:])
+    assert int((slab.weight > 0).sum()) > 1000
 
 
 def _plane(z, value=0):

@@ -164,6 +164,52 @@ def sweep_face_rays(tsdf_p, origin_p, vs_p, spec):
 
 
 @functools.lru_cache(maxsize=None)
+def _sweep_shard_fn(vs_p, spec, dims_global):
+    import jax
+
+    from kinfu_tpu.ops.pallas_raycast import RaySpec, _sweep_face_rays
+
+    return jax.jit(lambda tp, o, p0, r0: _sweep_face_rays(
+        tp, o, vs_p, RaySpec(*spec), True, dims_global=dims_global, plane0=p0, row0=r0))
+
+
+def sweep_face_rays_shard(tsdf_p, origin_p, vs_p, spec, dims_global, plane0, row0):
+    """pallas_raycast._sweep_face_rays (interpret) on a slab of a primed
+    volume of `dims_global`, starting at global plane `plane0` / row
+    `row0`: (hit, back) [F, F]."""
+    return _np(_sweep_shard_fn(tuple(vs_p), tuple(spec), tuple(dims_global))(
+        tsdf_p, origin_p, plane0, row0))
+
+
+def integrate_shard(tsdf, weight, color, depth_m, color_rgb, R, t, intr, params_kw, z_offset,
+                    shard_dim, spec=None):
+    """volume.integrate.integrate (the dispatcher, its mode from the
+    configuration) on a slab whose first voxel along `shard_dim` is global
+    index `z_offset`, jitted: (tsdf, weight, colour). In warped mode, with
+    `spec`, the face spec of its sweeps (the dispatcher's own call passes
+    none)."""
+    from unittest import mock
+
+    import jax
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.geometry.se3 import Pose
+    from kinfu_tpu.ops import pallas_integrate
+    from kinfu_tpu.ops.facewarp import FaceSpec
+    from kinfu_tpu.volume.integrate import integrate as fn
+    from kinfu_tpu.volume.tsdf import TSDFVolume
+
+    params = KinFuParams(**dict(params_kw))
+    warped = pallas_integrate.integrate_warped
+    with mock.patch.object(pallas_integrate, "integrate_warped", lambda *a, **k: warped(
+            *a, **k, interpret=True, **({} if spec is None else {"spec": FaceSpec(*spec)}))):
+        v = jax.jit(lambda *a: fn(TSDFVolume(*a[:3]), a[3], a[4], Pose(a[5], a[6]), _intr(intr),
+                                  params, z_offset=z_offset, shard_dim=shard_dim))(
+            tsdf, weight, color, depth_m, color_rgb, R, t)
+    return _np((v.tsdf, v.weight, v.color))
+
+
+@functools.lru_cache(maxsize=None)
 def _face_fields_fn(spec):
     import jax
 
