@@ -78,7 +78,26 @@ Phases; any failure exits non-zero before the result line:
      ATE is <= 1 mm and the map error no worse than the plain session's x
      1.05; then every keyframe pose shifted 0.12 m and the map rebuilt:
      the fused sphere sits on the shifted sphere;
-  4d. (run after 5d, before the profiler) the sharded step on the one card.
+  5e. the corridor of tests/test_session.py::test_streaming_corridor_scale
+     (100 frames walking 1.386 m along +z through the orbit's scene, at this
+     width) through kinfu_step, the fixed volume, then through the streaming
+     step (the grid follows the camera, pipeline/streaming.py), fused and
+     with fused_mode="off", each step under sync-debug mode "error", then
+     through KinFuSession(streaming=True): every frame after the first
+     tracks; the grid shifts (the frames are printed); the streaming
+     poses before the first shift are the fixed volume's bit for bit, and
+     within 1e-4 m of them on the frames after it; shift_volume on the
+     last volume equals a slice copy on the card (and the CPU's
+     shift_volume) bit for bit, for a shift along each axis; the
+     aligned ATE is <= 1 mm (or within 1.1x the fixed volume's where that
+     exceeds 1 mm); K1 launches 19 times a frame, K2 and K5 once, K3 and K4
+     six times; the streaming step makes no host sync ("warn"); the
+     non-fused run gives the fused one's grid offsets and its poses within
+     1e-4 m; the session gives the step's poses and offset, a point cloud
+     inside the moved volume, a 3D view and a checkpoint that loads with
+     its offset and tracks the next frame; prints one grid shift's time
+     beside its bound and the streaming step's ms/frame beside the orbit's;
+  4d. (run after 5e, before the profiler) the sharded step on the one card.
      In this process, the shard forms against their plain versions at the
      main path's shapes, on the 512^3 volume of frames 0-2 cut into 4 Z
      slabs and 4 Y slabs: K2 and K3 on each slab with its origin folded
@@ -111,7 +130,9 @@ Phases; any failure exits non-zero before the result line:
      device time and launches of the ICP of a frame alone, one host call
      against one-iteration launches with the eager finish; then 8 steps of
      the corner orbit where two faces are live (frames 20-27); then 8 steps
-     of the non-fused orbit, and one relocalize_step call;
+     of the non-fused orbit, one relocalize_step call, 8 steps of the
+     streaming corridor over frames where the grid shifts (90-97), and one
+     grid shift alone;
   7. print one JSON line describing the kernels and the shard forms (with
      each kernel's launches on every path this script drives, the sharded
      ones summed over the ranks), then the card, then the result line.
@@ -811,19 +832,24 @@ def check_icp_finish(cvs, cns, state, params, intr, device):
     return timed
 
 
-def count_syncs(frames, params, intr, device) -> float:
-    """Host synchronisations a step makes, per frame: kinfu_step over
-    `frames` from a fresh state under torch.cuda's sync-debug mode "warn",
-    counting its warnings (after two frames that build the step's constant
-    caches). The mode sees the synchronising CUDA calls PyTorch makes
-    (copies between host and device, reads of a device value); PyTorch
-    calls it a prototype that may miss some."""
+def count_syncs(frames, params, intr, device, streaming: bool = False) -> float:
+    """Host synchronisations a step makes, per frame: kinfu_step (with
+    `streaming`, streaming_step) over `frames` from a fresh state under
+    torch.cuda's sync-debug mode "warn", counting its warnings (after two
+    frames that build the step's constant caches). The mode sees the
+    synchronising CUDA calls PyTorch makes (copies between host and device,
+    reads of a device value); PyTorch calls it a prototype that may miss
+    some."""
     import warnings
 
     import torch
 
     from kinfu_tpu_torch.pipeline.kinfu import init_state, kinfu_step
 
+    if streaming:
+        from kinfu_tpu_torch.pipeline.streaming import init_streaming_state, streaming_step
+
+        init_state, kinfu_step = init_streaming_state, streaming_step
     dev = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
            for d, c in frames]
     state = init_state(params, intr, device=device)
@@ -847,12 +873,15 @@ def count_syncs(frames, params, intr, device) -> float:
     return sum(where.values()) / (len(dev) - 2)
 
 
-def run_orbit(frames, params, intr, device, no_sync: bool = False):
+def run_orbit(frames, params, intr, device, no_sync: bool = False, origins=None):
     """Phase 4: the tracked orbit through init_state + kinfu_step. With
     `no_sync`, each step runs under torch.cuda's sync-debug mode "error":
     any operation in it that synchronises the host with the device fails
-    the run, naming the operation. Returns (poses [N,4,4], oks [N],
-    inliers [N], per-frame ms [N], final state, launches)."""
+    the run, naming the operation. With a list `origins`, the frames go
+    through init_streaming_state + streaming_step instead (the session's
+    margin), and each frame's grid offset (`origin_vox`, numpy int32 [3])
+    is appended to it. Returns (poses [N,4,4], oks [N], inliers [N],
+    per-frame ms [N], final state, launches)."""
     import torch
 
     from kinfu_tpu_torch.ops import kernels
@@ -860,8 +889,17 @@ def run_orbit(frames, params, intr, device, no_sync: bool = False):
 
     dev_frames = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
                   for d, c in frames]
-    step = make_step_fn(params, intr)
-    state = init_state(params, intr, device=device)
+    if origins is None:
+        step = make_step_fn(params, intr)
+        state = init_state(params, intr, device=device)
+    else:
+        from kinfu_tpu_torch.pipeline.streaming import (
+            init_streaming_state,
+            make_streaming_step_fn,
+        )
+
+        step = make_streaming_step_fn(params, intr)
+        state = init_streaming_state(params, intr, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -884,9 +922,13 @@ def run_orbit(frames, params, intr, device, no_sync: bool = False):
         else:
             state, out = step(state, d, c)
         outs.append(out)
+        if origins is not None:
+            origins.append(state.origin_vox)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    if origins is not None:
+        origins[:] = [o.cpu().numpy() for o in origins]
     poses = np.stack([o.pose_matrix.cpu().numpy() for o in outs])
     oks = np.array([bool(o.tracking_ok) for o in outs])
     inliers = np.array([int(o.icp_inliers) for o in outs])
@@ -1082,8 +1124,9 @@ def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
 
 def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
                   n: int = 10, first: int = 2, label: str = "orbit",
-                  icp: bool = True) -> None:
-    """Phase 6: torch.profiler over frames first..n-1 of a fresh run. Prints
+                  icp: bool = True, streaming: bool = False) -> None:
+    """Phase 6: torch.profiler over frames first..n-1 of a fresh run (with
+    `streaming`, of the streaming step). Prints
     the kernels by device time, their sum per frame and its share of
     `ms_frame` (the step's time without the profiler), each port kernel's
     device time per frame and a launch (per frame, its longest launch and
@@ -1096,6 +1139,11 @@ def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
 
     from kinfu_tpu_torch.pipeline.kinfu import init_state, make_step_fn
 
+    if streaming:
+        from kinfu_tpu_torch.pipeline.streaming import (
+            init_streaming_state as init_state,
+            make_streaming_step_fn as make_step_fn,
+        )
     step = make_step_fn(params, intr)
     state = init_state(params, intr, device=device)
     dev = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
@@ -1647,6 +1695,299 @@ def profile_relocalize(frames, params, intr, device, n: int = 10) -> None:
     launches = sum(e.count for e in ev)
     print(f"    relocalize_step, one call: device {busy:.4f} ms in {launches} launches "
           f"(ok {bool(out.tracking_ok)})", flush=True)
+
+
+# ---- phase 5e: the streaming (camera-following) volume --------------------
+
+#: tests/test_session.py::test_streaming_corridor_scale's corridor: frames
+#: of a walk along +z through default_test_scene, metres a frame
+CORRIDOR_FRAMES = 100
+CORRIDOR_STEP = (0.0, 0.0, 0.014)
+#: where the streaming session writes its 3D view and checkpoint
+STREAM_OUT = REPO / "build" / "chip_smoke_stream"
+#: the streaming step's aligned ATE bound as a multiple of the fixed
+#: volume's, where that exceeds ATE_MAX on the corridor
+STREAM_ATE_FACTOR = 1.1
+#: the corridor frames phase 6 profiles (the grid shifts on them)
+STREAM_PROFILE = (90, 98)
+#: how far the streaming step's poses may lie from the fixed volume's on
+#: the frames tracked against a shifted grid, metres: the volume's pose
+#: moves by whole voxels, which rounds its voxel centres otherwise (2.23e-5
+#: m measured on frames 91-99 on an H100); a shift off by one voxel moves
+#: the map by 5.9 mm
+SHIFTED_POSE_TOL = 1e-4
+#: (sx, sy, sz) shifts that `check_shift` holds shift_volume to on the
+#: card: each axis in both directions, and one past the far side
+SHIFT_CHECKS = ((0, 0, 2), (3, -1, -2), (-5, 4, 0), (0, 600, 0))
+
+
+def corridor_frames(n: int, intr):
+    """The corridor's frames and the ground truth relative to the first
+    camera."""
+    from kinfu_tpu_torch.data.synthetic import default_test_scene, make_translation_trajectory
+
+    scene = default_test_scene()
+    traj = make_translation_trajectory(n, step=CORRIDOR_STEP)
+    gt = [np.linalg.inv(traj[0]) @ T for T in traj]
+    return [scene.render_frame(T, intr) for T in traj], gt
+
+
+def shift_frames(origins) -> list:
+    """[(frame, origin_vox)] of each frame whose grid offset changed."""
+    out, prev = [], np.zeros(3, np.int32)
+    for k, o in enumerate(origins):
+        if (o != prev).any():
+            out.append((k, o.tolist()))
+            prev = o
+    return out
+
+
+def time_shift(vol, device) -> tuple:
+    """(ms, bound ms) of `shift_volume` on `vol` by (0, 0, 2) voxels: CUDA
+    events around one call (median of 10; host time included), and the
+    least time to read the volume once and write the shifted one."""
+    import torch
+
+    from kinfu_tpu_torch.volume.stream import shift_volume
+
+    shift = torch.zeros(3, dtype=torch.int32, device=device)
+    shift[2] = 2
+    ms = cuda_ms(lambda: shift_volume(vol, shift)) if device.type == "cuda" else float("nan")
+    return ms, bound(2 * nbytes(*vol), 0)[0]
+
+
+def shift_plain(a, s):
+    """`a` [Z, Y, X] shifted by (sx, sy, sz) Python ints as shift_volume
+    shifts it, new[k] = old[k + s] and zero where k + s falls outside: one
+    slice copy into zeros."""
+    import torch
+
+    out = torch.zeros_like(a)
+    dst, src = [], []
+    for n, k in zip(a.shape, (s[2], s[1], s[0])):
+        lo, hi = max(0, -k), min(n, n - k)
+        if lo >= hi:
+            return out
+        dst.append(slice(lo, hi))
+        src.append(slice(lo + k, hi + k))
+    out[tuple(dst)] = a[tuple(src)]
+    return out
+
+
+def check_shift(vol, device) -> str:
+    """Holds shift_volume on the card to `shift_plain` on the card and, for
+    the first shift, to shift_volume on the CPU, bit for bit, for each of
+    SHIFT_CHECKS on `vol`. Fails on any difference; returns a summary."""
+    import torch
+
+    from kinfu_tpu_torch.volume.stream import shift_volume
+    from kinfu_tpu_torch.volume.tsdf import TSDFVolume
+
+    kept = []
+    for k, s in enumerate(SHIFT_CHECKS):
+        got = shift_volume(vol, torch.tensor(s, dtype=torch.int32, device=device))
+        for name, g, a in zip(TSDFVolume._fields, got, vol):
+            if g.dtype != a.dtype or not torch.equal(g, shift_plain(a, s)):
+                _fail(f"shift_volume by {s} on the card: {name} differs from the slice copy")
+        if k == 0:
+            cpu = shift_volume(TSDFVolume(*(a.cpu() for a in vol)),
+                               torch.tensor(s, dtype=torch.int32))
+            for name, g, c in zip(TSDFVolume._fields, got, cpu):
+                if not torch.equal(g.cpu(), c):
+                    _fail(f"shift_volume by {s}: {name} on the card differs from the CPU's")
+        kept.append(int((got.weight > 0).sum()))
+        del got
+    return ", ".join(f"{s}: {n} weighted voxels" for s, n in zip(SHIFT_CHECKS, kept))
+
+
+def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -> dict:
+    """Phase 5e: the corridor (`frames[:-1]`; the last frame is the resumed
+    session's) through (a) kinfu_step, the fixed volume, as the reference
+    run; (b) streaming_step, fused, under sync-debug mode "error", with the
+    launch counts set to 0 just before; (c) streaming_step with
+    fused_mode="off", under "error"; (d) KinFuSession(streaming=True).
+    Fails unless every frame after the first tracks on each; the grid
+    shifts; (b) gives (a)'s poses bit for bit on the frames before its
+    first shift, and within SHIFTED_POSE_TOL on the frames after it;
+    shift_volume on (b)'s last volume agrees bit for bit with its slice
+    copy and with the CPU (`check_shift`); (b)'s aligned ATE is <= 1 mm (or, where (a)'s exceeds
+    that, within (a)'s x STREAM_ATE_FACTOR); (b) and (c) launch K1 19 times
+    a frame, K2 and K5 once, K3 and K4 six times; the streaming step makes
+    no host sync (counted under "warn"); (c) gives (b)'s grid offsets and
+    its poses within NONFUSED_POSE_TOL; the session gives (b)'s poses and
+    grid offset, a point cloud inside the moved volume, a 3D view, and a
+    checkpoint that loads with its offset and tracks the next frame.
+    Prints the frames where the grid shifted, the time of one shift beside
+    its bound and ms/frame beside the orbit's `orbit_ms`. Returns (the
+    launches of (b), (c) and (d) by path, (b)'s ms/frame)."""
+    import torch
+
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+    from kinfu_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.pipeline.session import KinFuSession
+    from kinfu_tpu_torch.pipeline.streaming import _vol_pose_dyn
+
+    t_5e = time.perf_counter()
+    n = len(frames) - 1
+    per_frame = {"icp_normal_eqs": 19 * n, "build_face": n, "resample_face": n,
+                 "face_integrate": 6 * n, "sweep_rays": 6 * n}
+    print(f"[5e] streaming volume: the corridor ({n} frames, {CORRIDOR_STEP[2] * 1e3:g} mm a "
+          f"frame along +z) through the fixed volume, streaming_step fused and non-fused, "
+          f"and KinFuSession(streaming=True)", flush=True)
+    a_poses, a_oks, _, a_ms, a_state, _ = run_orbit(frames[:n], params, intr, device,
+                                                    no_sync=True)
+    del a_state
+    _empty_cache(device)
+    a_ate = ate_rmse(list(a_poses), gt[:n])
+    print(f"    (a) fixed volume: tracked {int(a_oks[1:].sum())}/{n - 1}; aligned ATE "
+          f"{a_ate * 1e3:.4f} mm", flush=True)
+    if not a_oks[1:].all():
+        _fail(f"corridor, fixed volume: tracking failed at frames {np.nonzero(~a_oks[1:])[0] + 1}")
+
+    syncs = count_syncs(frames[:6], params, intr, device, streaming=True)
+    origins = []
+    poses, oks, inliers, frame_ms, state, launches = run_orbit(
+        frames[:n], params, intr, device, no_sync=True, origins=origins)
+    shifts = shift_frames(origins)
+    first = shifts[0][0] if shifts else n
+    before = bool(np.array_equal(poses[:first], a_poses[:first]))
+    at_first = float(np.abs(poses[:first + 1] - a_poses[:first + 1]).max())
+    # frames after the first shift track against a shifted grid
+    shifted_gap = float(np.abs(poses[first + 1:] - a_poses[first + 1:]).max(initial=0.0))
+    ate = ate_rmse(list(poses), gt[:n])
+    limit = ATE_MAX if a_ate <= ATE_MAX else a_ate * STREAM_ATE_FACTOR
+    ms_frame = float(np.median(frame_ms[2:])) if frame_ms is not None else float("nan")
+    ms_shifting = (float(np.median(frame_ms[first:])) if frame_ms is not None and first < n
+                   else float("nan"))
+    shift_ms, shift_bound = time_shift(state.kinfu.vol, device)
+    shift_checked = check_shift(state.kinfu.vol, device)
+    del state
+    _empty_cache(device)
+    print(f"    (b) streaming_step, fused, each step under sync-debug mode \"error\": tracked "
+          f"{int(oks[1:].sum())}/{n - 1}; aligned ATE {ate * 1e3:.4f} mm (bound "
+          f"{limit * 1e3:.4f}); inliers at the last frame {int(inliers[-1])}; host syncs a step "
+          f"{syncs:g} (4 steps under \"warn\")", flush=True)
+    print(f"    the grid shifted on {len(shifts)} frames, (frame, origin_vox): {shifts}", flush=True)
+    print(f"    poses before the first shift (frames 0-{first - 1}) equal to the fixed volume's "
+          f"bit for bit: {before}; max gap through frame {first}: {at_first:.3g}; over "
+          f"frames {first + 1}-{n - 1}, on the shifted grid: {shifted_gap:.3g} (limit "
+          f"{SHIFTED_POSE_TOL})", flush=True)
+    print(f"    shift_volume on the card equal to its slice copy (and the CPU's, for the "
+          f"first) bit for bit, on (b)'s last volume shifted by {shift_checked}", flush=True)
+    print(f"    {ms_frame:.3f} ms/frame (median of frames 2-{n - 1}, CUDA events; the orbit "
+          f"{orbit_ms:.3f}), {ms_shifting:.3f} ms/frame over frames {first}-{n - 1}; one "
+          f"shift_volume of the volume {shift_ms:.4f} ms (CUDA events, bound "
+          f"{shift_bound:.4f} ms, bytes) on {smi}", flush=True)
+    print(f"    launches a frame: { {k: v / n for k, v in sorted(launches.items())} }",
+          flush=True)
+    if not oks[1:].all() or not np.isfinite(poses).all():
+        _fail(f"streaming step: tracking failed at frames {np.nonzero(~oks[1:])[0] + 1}")
+    if not shifts:
+        _fail("streaming step: the grid never shifted on the corridor")
+    if not before:
+        _fail("streaming step: the poses before the first shift differ from the fixed volume's")
+    if shifted_gap > SHIFTED_POSE_TOL:
+        _fail(f"streaming step: poses on the shifted grid {shifted_gap} from the fixed "
+              f"volume's (limit {SHIFTED_POSE_TOL})")
+    if ate > limit:
+        _fail(f"streaming step: aligned ATE {ate * 1e3:.4f} mm > {limit * 1e3:.4f} mm")
+    if syncs:
+        _fail(f"the streaming step synchronised the host {syncs:g} times a frame")
+    check_counts(launches, per_frame, "the streaming step")
+
+    nf_origins = []
+    nf_poses, nf_oks, _, nf_ms, nf_state, nf_launches = run_orbit(
+        frames[:n], params.replace(fused_mode="off"), intr, device, no_sync=True,
+        origins=nf_origins)
+    del nf_state
+    _empty_cache(device)
+    same_grid = all(np.array_equal(a, b) for a, b in zip(nf_origins, origins))
+    nf_gap = float(np.abs(nf_poses - poses).max())
+    print(f"    (c) streaming_step, fused_mode='off', under \"error\": tracked "
+          f"{int(nf_oks[1:].sum())}/{n - 1}; origin_vox on every frame equal to (b)'s: "
+          f"{same_grid}; max |pose - (b) pose| {nf_gap:.3g}; "
+          f"{float(np.median(nf_ms[2:])) if nf_ms is not None else float('nan'):.3f} ms/frame",
+          flush=True)
+    if not nf_oks[1:].all() or not same_grid or nf_gap > NONFUSED_POSE_TOL:
+        _fail("non-fused streaming step: tracking lost, other grid offsets, or poses "
+              f"{nf_gap} from the fused step's")
+    check_counts(nf_launches, per_frame, "the non-fused streaming step")
+
+    sess = KinFuSession(intr, params, device=device, streaming=True)
+    _sync(device)
+    kernels.reset_launch_counts()
+    s_oks = [sess.pipeline(c, d) for d, c in frames[:n]]
+    _sync(device)
+    s_launches = dict(kernels.LAUNCHES)
+    record = np.stack(sess.pose_record)
+    s_gap = float(np.abs(record - poses).max()) if record.shape == poses.shape else np.inf
+    origin = sess.state.origin_vox.cpu().numpy()
+    pts = sess.extract_pointcloud()
+    lo = _vol_pose_dyn(params, sess.state.origin_vox).t.cpu().numpy()
+    inside = bool(((pts >= lo) & (pts <= lo + np.asarray(params.volume_range, np.float32))).all())
+    STREAM_OUT.mkdir(parents=True, exist_ok=True)
+    view = STREAM_OUT / "3d.png"
+    sess.save_3d(str(view))
+    ckpt = STREAM_OUT / "stream.npz"
+    save_checkpoint(str(ckpt), sess)
+    resumed = load_checkpoint(str(ckpt), device=sess.device)
+    ckpt.unlink()
+    kept = (resumed.streaming and np.array_equal(resumed.state.origin_vox.cpu().numpy(), origin)
+            and all(torch.equal(a, b) for a, b in zip(resumed.state.kinfu.vol,
+                                                      sess.state.kinfu.vol)))
+    del sess
+    ok = resumed.pipeline(frames[n][1], frames[n][0])
+    print(f"    (d) session: tracked {sum(s_oks)}/{n}; max |pose record - (b) poses| {s_gap:.3g}; "
+          f"origin_vox {origin.tolist()} ((b): {origins[-1].tolist()}); extracted {len(pts)} "
+          f"points, all inside the moved volume [{lo.tolist()} + range]: {inside}; 3D view "
+          f"{view.stat().st_size} bytes; checkpoint loaded with its origin_vox and volume: "
+          f"{kept}; frame {n} tracked after resuming: {ok} (origin_vox then "
+          f"{resumed.state.origin_vox.cpu().numpy().tolist()})", flush=True)
+    if not all(s_oks) or s_gap > SESSION_POSE_TOL or not np.array_equal(origin, origins[-1]):
+        _fail("streaming session: tracking lost, or poses or grid offset other than (b)'s")
+    if len(pts) <= SESSION_MIN_POINTS or not inside or view.stat().st_size == 0:
+        _fail(f"streaming session: {len(pts)} points, all inside the moved volume: {inside}")
+    if not (kept and ok):
+        _fail("streaming session: the checkpoint did not load as saved, or the next frame "
+              "lost tracking")
+    for path, got in (("streaming", launches), ("streaming_non_fused", nf_launches),
+                      ("streaming_session", s_launches)):
+        for key, name, *_ in KERNELS:
+            if got.get(key, 0) <= 0:
+                _fail(f"{name} was not launched on the path {path}")
+    print(f"  phase 5e took {time.perf_counter() - t_5e:.1f} s", flush=True)
+    return {"streaming": launches, "streaming_non_fused": nf_launches,
+            "streaming_session": s_launches}, ms_frame
+
+
+def profile_shift(params, device, n: int = 4) -> None:
+    """Phase 6, the grid shift alone: device time and launches of one
+    `shift_volume` call (by (0, 0, 2) voxels; a zero shift runs the same
+    operations) on a volume of the workload's size, over `n` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kinfu_tpu_torch.volume.stream import shift_volume
+    from kinfu_tpu_torch.volume.tsdf import create_volume
+
+    vol = create_volume(params.volume_dims, device=device)
+    shift = torch.zeros(3, dtype=torch.int32, device=device)
+    shift[2] = 2
+    shift_volume(vol, shift)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            shift_volume(vol, shift)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / n
+    launches = sum(e.count for e in ev) / n
+    print(f"    shift_volume, one call on {tuple(vol.tsdf.shape)}: device {busy:.4f} ms in "
+          f"{launches:.0f} launches (bound {bound(2 * nbytes(*vol), 0)[0]:.4f} ms, bytes)",
+          flush=True)
 
 
 # ---- phase 4d: the sharded step on the one card ---------------------------
@@ -2481,6 +2822,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     reloc_launches = run_relocalize(frames[:n], gt[:n], params, intr, smi)
     pg_launches = run_pose_graph(params, intr, smi)
+    t0 = time.perf_counter()
+    corridor, corridor_gt = corridor_frames(CORRIDOR_FRAMES + 1, intr)
+    print(f"    rendered {CORRIDOR_FRAMES + 1} corridor frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stream_launches, stream_ms = run_streaming(corridor, corridor_gt, params, intr, device, smi,
+                                               ms_frame)
+    torch.cuda.empty_cache()
 
     t_4d = time.perf_counter()
     print(f"[4d] the sharded step on the one card: shard forms against their plain versions "
@@ -2518,10 +2866,15 @@ def main() -> None:
                   str(Path(table).with_suffix(".nonfused.txt")), nf_ms,
                   label="non-fused orbit", icp=False)
     profile_relocalize(frames, params, intr, device)
+    profile_steps(corridor, params, intr, device, str(Path(table).with_suffix(".streaming.txt")),
+                  stream_ms, n=STREAM_PROFILE[1], first=STREAM_PROFILE[0],
+                  label="streaming corridor (the grid shifts)", icp=False, streaming=True)
+    profile_shift(params, device)
 
     paths = {"orbit": launches, "session": s_launches, "cli_session": cli_launches,
              "non_fused": nf_launches, "relocalize_step": reloc_launches,
-             "pose_graph_session": pg_launches, **shard_launches, "sweep": sweep_launches}
+             "pose_graph_session": pg_launches, **stream_launches, **shard_launches,
+             "sweep": sweep_launches}
     for path in (*shard_launches, "sweep"):
         for key, name, *_ in KERNELS:
             if paths[path].get(key, 0) <= 0:

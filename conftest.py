@@ -31,40 +31,42 @@ FIRST = ("test_ysharded.py", "test_fused_step.py", "test_fused_streaming.py",
 #: seconds per file, the sum over its tests of a tier-1 run's --junitxml
 #: (6 workers on an 8-core CPU host); a file not listed counts as 0
 SECONDS = {
-    "test_distributed.py": 529,
-    "test_fused_sharded.py": 344,
-    "test_dispatch.py": 207,
-    "test_pallas_integrate.py": 188,
-    "test_torch_io_cli.py": 129,
-    "test_torch_sharded_integrate.py": 72,
-    "test_torch_sharded_fused.py": 57,
-    "test_torch_sharded_step.py": 42,
-    "test_torch_sharded_kernels.py": 29,
-    "test_pallas_raycast.py": 127,
-    "test_torch_mapping.py": 120,
-    "test_mapping.py": 96,
-    "test_torch_raycast.py": 70,
-    "test_torch_integrate.py": 69,
-    "test_torch_volume.py": 62,
-    "test_torch_session.py": 56,
+    "test_distributed.py": 522,
+    "test_torch_io_cli.py": 359,
+    "test_fused_sharded.py": 350,
+    "test_dispatch.py": 305,
+    "test_torch_mapping.py": 295,
+    "test_pallas_integrate.py": 213,
+    "test_torch_session.py": 172,
+    "test_pallas_raycast.py": 119,
+    "test_mapping.py": 111,
+    "test_torch_volume.py": 102,
+    "test_torch_sharded_integrate.py": 101,
+    "test_torch_streaming.py": 95,
+    "test_torch_integrate.py": 85,
+    "test_torch_sharded_fused.py": 73,
+    "test_torch_raycast.py": 60,
+    "test_torch_sharded_kernels.py": 57,
+    "test_pipeline.py": 51,
+    "test_torch_sharded_step.py": 39,
     "test_session.py": 38,
-    "test_pipeline.py": 33,
-    "test_pallas_icp.py": 32,
-    "test_torch_icp_warped.py": 27,
-    "test_torch_icp.py": 23,
+    "test_pallas_icp.py": 35,
+    "test_torch_icp_warped.py": 30,
+    "test_torch_icp.py": 25,
+    "test_sanitizers.py": 24,
     "test_frontend.py": 21,
-    "test_tilegather.py": 20,
-    "test_sanitizers.py": 19,
+    "test_tilegather.py": 19,
     "test_volume.py": 19,
-    "test_icp.py": 15,
-    "test_torch_foundations.py": 14,
-    "test_torch_frontend.py": 14,
-    "test_golden_trajectory.py": 12,
+    "test_torch_foundations.py": 16,
     "test_datasets.py": 12,
-    "test_torch_facewarp.py": 9,
-    "test_viz3d.py": 8,
+    "test_icp.py": 12,
+    "test_viz3d.py": 11,
+    "test_golden_trajectory.py": 9,
+    "test_torch_facewarp.py": 7,
+    "test_se3.py": 3,
     "test_intrinsics.py": 2,
-    "test_se3.py": 2,
+    "test_io.py": 1,
+    "test_torch_frontend.py": 1,
 }
 
 

@@ -7,7 +7,8 @@ Commands:
   eval   ATE/RPE of an estimated trajectory against ground truth
   sweep  replica-parallel eval sweep: sequences x configs over `--devices`
          ranks (parallel/sweep.py), one JSON line per (sequence, config)
-  bench  per-frame latency benchmark (not ported yet: ROADMAP queue 1, item 7)
+  bench  per-frame latency benchmark (raises: the port's benchmark belongs
+         to the change that writes BENCHMARK.json)
 
 `run` drives `KinFuSession` on `--device`: on the card the fused step on
 the CUDA kernels, on the CPU the same step on the kernels' plain versions
@@ -16,7 +17,10 @@ also picks on the card). `--relocalize` keeps the map through a tracking
 loss and re-acquires it from a keyframe; `--pose-graph` closes loops and
 rebuilds the map at the corrected poses; both go through the integrate
 and raycast dispatchers, which on the card launch the same kernels.
-`--streaming` raises, naming its ROADMAP item.
+`--streaming` runs the camera-following volume (pipeline/streaming.py),
+whose grid shifts by whole voxels to keep the view ahead of the camera
+inside it: the fused step on the same kernels, for corridor-scale
+sequences.
 
 `sweep` starts `--devices` rank processes on `--device` in a gloo process
 group (several ranks may share one card) and tracks synthetic orbits and
@@ -32,8 +36,6 @@ import os
 import time
 
 import numpy as np
-
-from kinfu_tpu_torch.pipeline.session import _not_ported
 
 
 def _add_params_flags(p: argparse.ArgumentParser) -> None:
@@ -92,8 +94,6 @@ def cmd_run(args) -> int:
     from kinfu_tpu_torch.pipeline.session import KinFuSession
     from kinfu_tpu_torch.utils.metrics import FrameMetrics, MetricsRecorder
 
-    if args.streaming:
-        raise _not_ported("--streaming (the streaming volume)", "item 11")
     ds, _ = _open_dataset(args.data, args.dataset)
     intr = ds.intrinsics
     scale = intr.depth_scale if intr.depth_scale != 1.0 else 0.001
@@ -105,7 +105,7 @@ def cmd_run(args) -> int:
         print(f"resumed from {args.resume} at frame {start}")
     else:
         sess = KinFuSession(intr, params, device=args.device, relocalize=args.relocalize,
-                            pose_graph=args.pose_graph)
+                            streaming=args.streaming, pose_graph=args.pose_graph)
         start = 0
 
     if args.dump_renders:
@@ -294,7 +294,9 @@ def cmd_sweep(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise _not_ported("the bench command (the port's benchmark)", "item 7")
+    raise NotImplementedError(
+        "the bench command is not ported: the port's benchmark belongs to the change "
+        "that writes BENCHMARK.json (ROADMAP.md)")
 
 
 def main(argv=None) -> int:
@@ -306,7 +308,7 @@ def main(argv=None) -> int:
     rp.add_argument("--dataset", choices=("auto", "bundled", "tum", "icl"), default="auto")
     rp.add_argument("--frames", type=int, default=None)
     rp.add_argument("--streaming", action="store_true",
-                    help="camera-following moving volume (not ported yet: item 11)")
+                    help="camera-following moving volume (corridor-scale sequences)")
     rp.add_argument("--relocalize", action="store_true",
                     help="keep the map on tracking loss and relocalize")
     rp.add_argument("--pose-graph", action="store_true",
@@ -362,7 +364,7 @@ def main(argv=None) -> int:
     _add_params_flags(sp)
     sp.set_defaults(fn=cmd_sweep)
 
-    bp = sub.add_parser("bench", help="per-frame latency benchmark (not ported yet: item 7)")
+    bp = sub.add_parser("bench", help="per-frame latency benchmark (not ported: raises)")
     bp.add_argument("rest", nargs=argparse.REMAINDER)
     bp.set_defaults(fn=cmd_bench)
 

@@ -4,9 +4,9 @@ kinfu_tpu/io/checkpoint.py).
 The whole session state (TSDF, weight and colour volumes, pose, model
 maps, pose history, frame index and the exact configuration) goes through
 one compressed npz in the JAX package's layout and meta JSON, so that a
-checkpoint written by either package loads in the other. Checkpoints of a
-streaming session (an `origin_vox` array) need the streaming volume, which
-is not ported yet (ROADMAP.md queue 1, item 11).
+checkpoint written by either package loads in the other. A streaming
+session's checkpoint adds the grid's offset, `origin_vox`, and says
+`"streaming": true` in its meta.
 """
 
 from __future__ import annotations
@@ -30,7 +30,13 @@ def _np(t) -> np.ndarray:
 def save_checkpoint(path: str, session) -> None:
     """Serialise a KinFuSession (pipeline/session.py) to `path` (.npz)."""
     state = session.state
+    streaming = session.streaming
+    extra = {}
+    if streaming:
+        extra["origin_vox"] = _np(state.origin_vox)
+        state = state.kinfu
     arrays = {
+        **extra,
         "tsdf": _np(state.vol.tsdf),
         "weight": _np(state.vol.weight),
         "color": _np(state.vol.color),
@@ -48,7 +54,7 @@ def save_checkpoint(path: str, session) -> None:
         "levels": len(state.model_vmaps),
         "params": dataclasses.asdict(session.params),
         "intrinsics": dataclasses.asdict(session.intr),
-        "streaming": False,
+        "streaming": streaming,
     }
     tmp = path + ".tmp"
     np.savez_compressed(tmp, meta=json.dumps(meta), **arrays)
@@ -60,16 +66,13 @@ def load_checkpoint(path: str, device="cuda"):
     """Rebuild a KinFuSession on `device` from a checkpoint written by
     either package's `save_checkpoint`."""
     from kinfu_tpu_torch.pipeline.session import KinFuSession
-    from kinfu_tpu_torch.pipeline.state import state_from_numpy
+    from kinfu_tpu_torch.pipeline.state import state_from_numpy, streaming_state_from_numpy
 
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         if meta["version"] != _FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint version {meta['version']}")
-        if meta.get("streaming", False):
-            raise NotImplementedError(
-                "a streaming session's checkpoint needs the streaming volume, which "
-                "is not ported yet: ROADMAP.md queue 1, item 11")
+        streaming = bool(meta.get("streaming", False))
         # JSON turns the config's tuples into lists
         params = KinFuParams(**{k: tuple(v) if isinstance(v, list) else v
                                 for k, v in meta["params"].items()})
@@ -89,11 +92,14 @@ def load_checkpoint(path: str, device="cuda"):
             "model_nmaps": [z[f"model_n{i}"] for i in range(levels)],
             "frame_count": z["frame_count_dev"],
         }
+        if streaming:
+            arrays["origin_vox"] = z["origin_vox"]
         pose_record = [np.asarray(m) for m in z["pose_record"]]
         frame_count = int(meta["frame_count"])
 
-    session = KinFuSession(intr, params, device=device)
-    session.state = state_from_numpy(arrays, device=session.device)
+    session = KinFuSession(intr, params, device=device, streaming=streaming)
+    from_numpy = streaming_state_from_numpy if streaming else state_from_numpy
+    session.state = from_numpy(arrays, device=session.device)
     session.pose_record = pose_record
     session.frame_count = frame_count
     return session

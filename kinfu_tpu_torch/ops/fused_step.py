@@ -12,6 +12,8 @@ save, so the port keeps what the switch computed and drops how:
     so no Python branch reads the device;
   - the raycast's resample and composite over the faces (L132-144) is one
     launch of K5 for all six faces, which also reads those flags;
+  - a `pre` transform of the volume (L79-85, the streaming grid shift)
+    runs once before the sweeps instead of inside each branch;
   - on failure the volume is reset by multiplying it in place with a device
     0/1 scalar, as the fail branch does (L197-211);
   - `pin_natural` (kinfu_tpu/ops/layout_pin.py), which pins TPU layouts
@@ -60,12 +62,22 @@ def fused_update(
     params: KinFuParams,
     good: torch.Tensor,
     reset_on_fail: bool = True,
+    pre=None,
 ):
     """Fuse the frame into `vol` in place, then raycast the fused volume.
 
     Returns (vol, vmap [H,W,3], nmap [H,W,3]): the camera-frame prediction,
     zeros where `good` (a device bool) is False; the volume is then reset
-    when reset_on_fail, else kept for a relocalizer."""
+    when reset_on_fail, else kept for a relocalizer.
+
+    `pre`, if given, maps the (tsdf, weight, colour) tuple to a new tuple
+    before the sweeps (the streaming grid shift, pipeline/streaming.py;
+    L79-85); the update then runs in place on the new tensors, and they
+    are the volume returned. The JAX fail branch skips `pre` (L197-211);
+    here it always runs, so a caller whose `pre` must not act on a failed
+    frame gates it with `good` itself."""
+    if pre is not None:
+        vol = TSDFVolume(*pre(tuple(vol)))
     size, focal = params.raycast_face
     rspec = RaySpec(size=int(size), focal=float(focal))
     fspec = default_face_spec()

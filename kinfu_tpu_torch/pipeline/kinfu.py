@@ -155,15 +155,17 @@ def kinfu_step(
 
 
 def step_with(state: KinFuState, depth_mm: torch.Tensor, params: KinFuParams,
-              intr: Intrinsics, track, update, auto_reset: bool = True
+              intr: Intrinsics, track, update, auto_reset: bool = True, place=None
               ) -> Tuple[KinFuState, StepOutput]:
     """The step around its two parts: `track(vmaps, nmaps)`, the ICP of the
     measurement pyramids against the state's model maps (an `ICPResult`),
     and `update(vol, depth_m, vol2cam, cam2vol, good)`, the volume update,
     which returns (vol, vmap, nmap). `kinfu_step` passes the single-device
-    ones, the sharded step (parallel/sharded.py) the rank's."""
+    ones, the sharded step (parallel/sharded.py) the rank's. `place(new_pose,
+    is_first)`, if given, returns the frame's world-from-volume pose (the
+    streaming step's moving grid, pipeline/streaming.py); by default it is
+    the configured fixed one."""
     dev = state.vol.tsdf.device
-    vol_pose = _volume_pose(params, dev)
 
     dmaps, vmaps, nmaps = _measurement(depth_mm, params, intr)
 
@@ -174,6 +176,7 @@ def step_with(state: KinFuState, depth_mm: torch.Tensor, params: KinFuParams,
     # frame 1 fuses at the held pose; tracked frames right-multiply the
     # ICP increment
     new_pose = _where_pose(is_first, state.pose, compose(state.pose, icp.pose))
+    vol_pose = _volume_pose(params, dev) if place is None else place(new_pose, is_first)
     vol2cam = compose(inverse(new_pose), vol_pose)
     cam2vol = compose(inverse(vol_pose), new_pose)
 

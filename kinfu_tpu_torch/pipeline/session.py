@@ -28,8 +28,12 @@ Two modes of the JAX session add mapping (mapping/):
     against it by ICP, optimizes the keyframe graph and corrects the
     trajectory, then rebuilds the map at the corrected poses.
 Both run the integrate and raycast dispatchers (`volume/`), which on the
-card launch K2-K5. The streaming volume is not ported yet and raises
-NotImplementedError.
+card launch K2-K5. A third, streaming=True, runs the camera-following
+volume (`pipeline/streaming.py`): the grid shifts by whole voxels to keep
+the view ahead of the camera inside it, for corridor-scale sequences. Its
+state is a `StreamingState` (the step's state in `.kinfu`, the grid's
+offset in `.origin_vox`); it excludes relocalization and the pose graph,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,15 +60,16 @@ from kinfu_tpu_torch.pipeline.kinfu import (
     relocalize_step,
 )
 from kinfu_tpu_torch.pipeline.render import render_normals, render_phong
+from kinfu_tpu_torch.pipeline.streaming import (
+    _vol_pose_dyn,
+    init_streaming_state,
+    make_streaming_step_fn,
+)
 from kinfu_tpu_torch.tracking.icp import rigid_icp
 from kinfu_tpu_torch.volume.extract import extract_points, extract_points_colored
 from kinfu_tpu_torch.volume.integrate import integrate
 from kinfu_tpu_torch.volume.raycast import raycast
 from kinfu_tpu_torch.volume.tsdf import reset_volume
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, {item}")
 
 
 class KinFuSession:
@@ -83,24 +88,30 @@ class KinFuSession:
     ):
         if streaming and relocalize:
             raise ValueError("streaming + relocalize not supported together")
-        if streaming:
-            raise _not_ported("streaming=True (the streaming volume)", "item 11")
         self.intr = intr
         self.params = params or KinFuParams()
         self.device = resolve_device(device)
-        self.state = init_state(self.params, intr, device=self.device)
-        # with relocalization on, a tracking failure keeps the map (the
-        # relocalizer owns recovery); otherwise the reference's auto-reset
-        self._step = make_step_fn(self.params, intr, auto_reset=not relocalize)
+        self.streaming = streaming
+        if streaming:
+            # camera-following moving volume; the reference's grid is fixed
+            # in space (kinectfusion.cpp:181-184)
+            self.state = init_streaming_state(self.params, intr, device=self.device)
+            self._step = make_streaming_step_fn(self.params, intr)
+        else:
+            self.state = init_state(self.params, intr, device=self.device)
+            # with relocalization on, a tracking failure keeps the map (the
+            # relocalizer owns recovery); otherwise the reference's
+            # auto-reset
+            self._step = make_step_fn(self.params, intr, auto_reset=not relocalize)
         self.relocalizer = None
         self.keyframes = None
         if relocalize:
             self.relocalizer = Relocalizer(num_pixels=intr.width * intr.height)
             self.keyframes = KeyframeStore()
         # ---- pose graph / loop closure (mapping/loop_closure.py) ----
-        self.pose_graph = pose_graph
+        self.pose_graph = pose_graph and not streaming
         self.loop_closures: List[dict] = []
-        if pose_graph:
+        if self.pose_graph:
             self.loop_config = loop_config or LoopClosureConfig()
             self.pg_keyframes = KeyframeStore(
                 min_translation=self.loop_config.kf_min_translation,
@@ -112,6 +123,17 @@ class KinFuSession:
         self.frame_times_ms: List[float] = []
         self.last_icp_inliers = 0
         self._points_cache: Optional[np.ndarray] = None
+
+    @property
+    def _kinfu(self):
+        """The step's `KinFuState` (`state.kinfu` in streaming mode)."""
+        return self.state.kinfu if self.streaming else self.state
+
+    def _volume(self):
+        """(volume, world-from-volume pose) of the grid as it is placed."""
+        if self.streaming:
+            return self.state.kinfu.vol, _vol_pose_dyn(self.params, self.state.origin_vox)
+        return self.state.vol, _volume_pose(self.params, self.device)
 
     def _tensor(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         """A host array on the session's device (the copy waits for nothing
@@ -178,7 +200,8 @@ class KinFuSession:
     def _pose_graph_update(self, depth, color, pose_m: np.ndarray) -> np.ndarray:
         """Keyframe bookkeeping and loop-closure detection and correction
         for one tracked frame. Returns the (possibly corrected) current
-        pose."""
+        pose. The pose graph is off in streaming mode, so `self.state` is a
+        plain `KinFuState`."""
         ks = self.state
         cur_index = len(self.pose_record) - 1
         if self._pg_cooldown > 0:
@@ -282,7 +305,10 @@ class KinFuSession:
         return False, np.eye(4, dtype=np.float32)
 
     def reset(self) -> None:
-        self.state = init_state(self.params, self.intr, device=self.device)
+        if self.streaming:
+            self.state = init_streaming_state(self.params, self.intr, device=self.device)
+        else:
+            self.state = init_state(self.params, self.intr, device=self.device)
         self.pose_record = [np.eye(4, dtype=np.float32)]
         self.frame_count = 1
         self._points_cache = None
@@ -290,7 +316,7 @@ class KinFuSession:
 
     def get_render_map(self, mode: str = PHONG) -> np.ndarray:
         """[H, W, 3] uint8 view of the model maps: Phong-shaded or normals."""
-        st = self.state
+        st = self._kinfu
         if mode == self.NORMAL:
             img = render_normals(st.model_nmaps[0])
         else:
@@ -301,8 +327,7 @@ class KinFuSession:
         return self.pose_record[-1]
 
     def extract_pointcloud(self) -> np.ndarray:
-        pts, count = extract_points(self.state.vol, _volume_pose(self.params, self.device),
-                                    self.params)
+        pts, count = extract_points(*self._volume(), self.params)
         self._points_cache = pts[: int(count)].cpu().numpy()
         return self._points_cache
 
@@ -315,8 +340,7 @@ class KinFuSession:
     def extract_pointcloud_colored(self):
         """(points [n,3], colours uint8 [n,3]): the coloured variant of
         extract_pointcloud (the reference extracts xyz only)."""
-        pts, cols, count = extract_points_colored(
-            self.state.vol, _volume_pose(self.params, self.device), self.params)
+        pts, cols, count = extract_points_colored(*self._volume(), self.params)
         n = int(count)
         return pts[:n].cpu().numpy(), cols[:n].cpu().numpy()
 
@@ -332,7 +356,7 @@ class KinFuSession:
             colors=cols if len(cols) else None,
             trajectory=self.pose_record,
             cur_pose=self.pose_record[-1],
-            volume_pose=np.asarray(self.params.volume_pose),
+            volume_pose=pose_matrix(self._volume()[1]).cpu().numpy(),
             volume_extent=self.params.volume_range,
             **kwargs,
         )

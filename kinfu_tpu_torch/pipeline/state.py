@@ -5,7 +5,9 @@ This system has no weights: the state a session carries, and the one that
 moves between the two packages, is the TSDF volume, the pose, the model
 pyramids and the frame count. `state_from_numpy` takes them as numpy
 arrays, for example a JAX `KinFuState` converted with `np.asarray` field
-by field; `state_to_numpy` gives them back in the same layout.
+by field; `state_to_numpy` gives them back in the same layout. A
+streaming session's state adds the grid's whole-voxel offset, `origin_vox`
+(`streaming_state_from_numpy` / `streaming_state_to_numpy`).
 """
 
 from __future__ import annotations
@@ -80,3 +82,22 @@ def state_to_numpy(state: KinFuState) -> Dict[str, Any]:
         "model_nmaps": [n(m) for m in state.model_nmaps],
         "frame_count": n(state.frame_count),
     }
+
+
+def streaming_state_from_numpy(d: Mapping[str, Any], device="cuda"):
+    """A `pipeline/streaming.py::StreamingState` on `device` from the
+    numpy fields of `state_from_numpy` and "origin_vox" (int32 [3], x y
+    z), for example a JAX `StreamingState`'s `kinfu` fields and its
+    `origin_vox`."""
+    from kinfu_tpu_torch.pipeline.streaming import StreamingState
+
+    kinfu = state_from_numpy(d, device=device)
+    origin = torch.as_tensor(np.array(d["origin_vox"]), dtype=torch.int32,
+                             device=kinfu.frame_count.device)
+    return StreamingState(kinfu=kinfu, origin_vox=origin)
+
+
+def streaming_state_to_numpy(state) -> Dict[str, Any]:
+    """The inverse of `streaming_state_from_numpy` (copies)."""
+    return dict(state_to_numpy(state.kinfu),
+                origin_vox=state.origin_vox.detach().cpu().numpy().copy())

@@ -139,16 +139,20 @@ def integrate_gather(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Te
     cz = _pick_z_chunk(Z)
 
     f32 = torch.float32
-    yy = torch.arange(Y, dtype=f32, device=dev) * vsy
-    if shard_dim == 1:
-        yy = yy + float(np.float32(z_offset) * np.float32(vsy))
-        z_offset = 0
-    yy = yy[None, :, None]
-    xx = (torch.arange(X, dtype=f32, device=dev) * vsx)[None, None, :]
+    iy = torch.arange(Y, dtype=f32, device=dev)[None, :, None]
+    ix = torch.arange(X, dtype=f32, device=dev)[None, None, :]
     zz_local = (torch.arange(cz, dtype=f32, device=dev) * vsz)[:, None, None]
     # per-row terms of the camera-frame position, in the JAX operation order
-    # ((R0 x + R1 y) + R2 z) + t
-    rx = [R[i, 0] * xx + R[i, 1] * yy for i in range(3)]
+    # ((R0 x + R1 y) + R2 z) + t. XLA reassociates R0 * (iota * vsx) into
+    # (R0 * vsx) * iota, which rounds otherwise unless vsx is a power of
+    # two; a Y slab's offset row coordinate, iota * vsy + offset, stays
+    # R1 * y
+    if shard_dim == 1:
+        yy = iy * vsy + float(np.float32(z_offset) * np.float32(vsy))
+        z_offset = 0
+        rx = [(R[i, 0] * vsx) * ix + R[i, 1] * yy for i in range(3)]
+    else:
+        rx = [(R[i, 0] * vsx) * ix + (R[i, 1] * vsy) * iy for i in range(3)]
 
     for z0 in range(0, Z, cz):
         sl = slice(z0, z0 + cz)

@@ -330,6 +330,7 @@ def test_port_imports_no_jax():
         import kinfu_tpu_torch.cli, kinfu_tpu_torch.io.images, kinfu_tpu_torch.data
         import kinfu_tpu_torch.data.icl_nuim, kinfu_tpu_torch.data.sensor
         import kinfu_tpu_torch.utils.metrics, kinfu_tpu_torch.utils.profiling
+        import kinfu_tpu_torch.pipeline.streaming, kinfu_tpu_torch.volume.stream
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

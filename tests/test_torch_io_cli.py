@@ -391,20 +391,22 @@ def test_cli_eval_matches_jax(cli_run, fmt):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["run", "--data", "unused", "--device", "cpu", "--streaming"], "item 11"),
+    (["run", "--device", "cpu", "--streaming"], None),
     (["run", "--device", "cpu", "--relocalize"], None),
     (["run", "--device", "cpu", "--pose-graph"], None),
     (["sweep"], None),
-    (["bench"], "item 7"),
+    (["bench"], "the change that writes BENCHMARK.json"),
 ], ids=["streaming", "relocalize", "pose-graph", "sweep", "bench"])
 def test_cli_unported_modes_raise(argv, item, tmp_path, capsys):
-    """The modes the port lacks raise, naming their ROADMAP item; the
-    ported `--relocalize` and `--pose-graph` run over two PNG frames on the
-    CPU and print their keyframe (and closure) counts, and `sweep` runs two
-    ranks over two 2-frame PNG sequences and prints one JSON line per
-    (sequence, config), each sequence's poses those of `run`."""
+    """`bench`, which the port lacks, raises and says where it belongs;
+    the modes ported since this test was written run: `--streaming`,
+    `--relocalize` and `--pose-graph` over two PNG frames on the CPU
+    (streaming with a session's poses; the other two print their keyframe
+    and closure counts), and `sweep` runs two ranks over two 2-frame PNG
+    sequences and prints one JSON line per (sequence, config), each
+    sequence's poses those of `run`."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+        with pytest.raises(NotImplementedError, match=item):
             cli.main(argv)
         return
     data, _ = _write_bundled(tmp_path / "seq", 2)
@@ -433,10 +435,18 @@ def test_cli_unported_modes_raise(argv, item, tmp_path, capsys):
             got = np.stack(read_poses_reference_format(str(out / f"{name}_64.txt")))
             np.testing.assert_allclose(got, want, atol=1e-5, err_msg=name)
         return
-    assert cli.main([*argv, "--data", data, "--frames", "2", *CLI_FLAGS, "--quiet"]) == 0
+    poses = tmp_path / "poses.txt"
+    assert cli.main([*argv, "--data", data, "--frames", "2", *CLI_FLAGS, "--quiet",
+                     "--save-poses", str(poses)]) == 0
     out = capsys.readouterr().out
     assert "done: 2 frames, 0 tracking failures" in out
-    if "--pose-graph" in argv:
+    if "--streaming" in argv:
+        ds = bundled.BundledDataset(data)
+        sess = KinFuSession(ds.intrinsics, PARAMS, device="cpu", streaming=True)
+        assert all(sess.pipeline(*ds[i]) for i in range(2))
+        sess.save_poses(str(tmp_path / "session_poses.txt"))
+        assert poses.read_text() == (tmp_path / "session_poses.txt").read_text()
+    elif "--pose-graph" in argv:
         assert "pose graph: 1 keyframes, 0 loop closures" in out
     else:
         assert "relocalize: 1 keyframes" in out

@@ -245,16 +245,14 @@ def test_reset_bootstraps_again(run):
 
 
 @pytest.mark.parametrize("flag", ["relocalize", "streaming", "pose_graph"])
-def test_unported_modes_raise(flag):
-    """The streaming volume is not ported and raises, naming its ROADMAP
-    item, also beside relocalization (as JAX raises that pair); the
-    relocalize and pose_graph modes, ported, run: two frames track, and
-    their keyframe stores fill."""
+def test_unported_modes_raise(flag, tmp_path):
+    """The session's modes run (each was ported after this test was
+    written, which is its name): relocalize and pose_graph track two
+    frames and fill their keyframe stores; streaming mirrors
+    tests/test_session.py::test_streaming_session_tracks_and_checkpoints
+    (streaming beside relocalization raises, as in JAX)."""
     if flag == "streaming":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
-            KinFuSession(INTR, PARAMS, device="cpu", streaming=True)
-        with pytest.raises(ValueError, match="streaming \\+ relocalize"):
-            KinFuSession(INTR, PARAMS, device="cpu", streaming=True, relocalize=True)
+        _streaming_session_tracks_and_checkpoints(tmp_path)
         return
     frames, _ = _frames(2)
     sess = KinFuSession(INTR, PARAMS, device="cpu", **{flag: True})
@@ -262,6 +260,70 @@ def test_unported_modes_raise(flag):
     assert len(sess.pose_record) == 2
     store = sess.keyframes if flag == "relocalize" else sess.pg_keyframes
     assert len(store) >= 1
+
+
+def _streaming_session_tracks_and_checkpoints(tmp_path):
+    """A streaming session tracks 3 frames, renders and extracts; its
+    checkpoint loads in the JAX package with `origin_vox` equal, and the JAX
+    package's checkpoint of a streaming state loads in the port and tracks
+    the next frame, keeping its `origin_vox`. The state crossing is the
+    session's own, its grid moved by (0, 0, 2) voxels with the content
+    shifted to match, so the world's geometry stays where it was."""
+    from kinfu_tpu_torch.pipeline.streaming import StreamingState, _vol_pose_dyn
+    from kinfu_tpu_torch.volume.stream import shift_volume
+
+    with pytest.raises(ValueError, match="streaming \\+ relocalize"):
+        KinFuSession(INTR, PARAMS, device="cpu", streaming=True, relocalize=True)
+    frames, _ = _frames(4)
+    sess = KinFuSession(INTR, PARAMS, device="cpu", streaming=True)
+    assert not sess.pose_graph
+    for d, c in frames[:3]:
+        assert sess.pipeline(c, d)
+    assert sess.frame_count == 4
+    assert sess.get_render_map(sess.PHONG).shape == (INTR.height, INTR.width, 3)
+    assert len(sess.extract_pointcloud()) > 100
+
+    origin = torch.tensor([0, 0, 2], dtype=torch.int32)
+    ks = sess.state.kinfu
+    sess.state = StreamingState(ks._replace(vol=shift_volume(ks.vol, origin)),
+                                sess.state.origin_vox + origin)
+    # the points are where they were: the extraction follows the grid
+    pts = sess.extract_pointcloud()
+    t = _vol_pose_dyn(PARAMS, sess.state.origin_vox).t.numpy()
+    assert len(pts) > 100 and (pts >= t - 1e-6).all()
+    assert (pts <= t + np.asarray(PARAMS.volume_range) + 1e-6).all()
+
+    path = str(tmp_path / "stream.npz")
+    checkpoint.save_checkpoint(path, sess)
+    js = jckpt.load_checkpoint(path)
+    assert js.streaming
+    np.testing.assert_array_equal(np.asarray(js.state.origin_vox), [0, 0, 2])
+    np.testing.assert_array_equal(np.asarray(js.state.kinfu.vol.tsdf),
+                                  sess.state.kinfu.vol.tsdf.numpy())
+
+    st = state_to_numpy(sess.state.kinfu)
+    duck = types.SimpleNamespace(
+        state=types.SimpleNamespace(
+            origin_vox=np.asarray([0, 0, 2], np.int32),
+            kinfu=types.SimpleNamespace(
+                vol=types.SimpleNamespace(tsdf=st["tsdf"], weight=st["weight"],
+                                          color=st["color"]),
+                pose=types.SimpleNamespace(R=st["pose"][:3, :3], t=st["pose"][:3, 3]),
+                model_vmaps=st["model_vmaps"], model_nmaps=st["model_nmaps"],
+                frame_count=st["frame_count"])),
+        pose_record=sess.pose_record, frame_count=sess.frame_count,
+        params=jcfg.KinFuParams(**CFG), intr=JIntr(*INTR_T), streaming=True)
+    jpath = str(tmp_path / "jax_stream.npz")
+    jckpt.save_checkpoint(jpath, duck)
+    ps = checkpoint.load_checkpoint(jpath, device="cpu")
+    assert ps.streaming and ps.params == PARAMS
+    for a, b in zip(ps.state.kinfu.vol, sess.state.kinfu.vol):
+        assert torch.equal(a, b)
+    d, c = frames[3]
+    assert ps.pipeline(c, d) and ps.frame_count == 5
+    assert ps.state.origin_vox.tolist() == [0, 0, 2]
+    ps.reset()
+    assert ps.state.origin_vox.tolist() == [0, 0, 0] and ps.frame_count == 1
 
 
 def test_save_3d_raises(tmp_path):
@@ -296,8 +358,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 
 def test_streaming_checkpoint_raises(tmp_path):
-    """A streaming session's checkpoint needs the streaming volume: loading
-    one raises, naming its ROADMAP item."""
+    """A checkpoint that says it is a streaming session's loads as one with
+    its grid offset, `origin_vox`; without that array it raises, as the
+    JAX package's `load_checkpoint` does."""
     import json
 
     sess = KinFuSession(Intrinsics(16, 12, 10.0, 10.0, 7.5, 5.5),
@@ -309,5 +372,11 @@ def test_streaming_checkpoint_raises(tmp_path):
     meta = json.loads(str(arrays.pop("meta")))
     meta["streaming"] = True
     np.savez(path, meta=json.dumps(meta), **arrays)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
+    with pytest.raises(KeyError, match="origin_vox"):
         checkpoint.load_checkpoint(str(path), device="cpu")
+    np.savez(path, meta=json.dumps(meta), origin_vox=np.asarray([1, -2, 3], np.int32),
+             **arrays)
+    loaded = checkpoint.load_checkpoint(str(path), device="cpu")
+    assert loaded.streaming and loaded.state.origin_vox.tolist() == [1, -2, 3]
+    assert loaded.state.origin_vox.dtype == torch.int32
+    assert torch.equal(loaded.state.kinfu.vol.tsdf, sess.state.vol.tsdf)

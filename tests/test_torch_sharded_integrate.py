@@ -7,6 +7,8 @@ from the whole volume here.
     on the same slab (its fold and `_sweep_face`), bit for bit, on both
     slabs of Z and of Y sharding, the +x face in the (2, 1, 0) frame
     included;
+  - the gather pass on the whole 128^3 volume and on a Z slab against the
+    JAX dispatcher, bit for bit;
   - the `integrate` dispatcher's fold: each slab's gather pass with its
     `z_offset` against JAX's on the same slab, bit for bit, and the stacked
     slabs against the JAX dispatcher on the whole volume: bit for bit for
@@ -82,12 +84,14 @@ def _slab(a: np.ndarray, sd: int, r: int) -> np.ndarray:
 
 #: per integrate mode: its configuration (the warped sweeps at the least
 #: cube `warp_dims_ok` admits; the gather pass at test_torch_volume.py's
-#: 64^3 over 2 m) and the JAX reference's instruction set
+#: 64^3 over 2 m, whose voxel size is a power of two, and at 128^3 over
+#: 3 m, whose voxel size is not) and the JAX reference's instruction set
 MODES = {
     "warped": (dict(CFG, integrate_mode="warped"), "AVX"),
     "gather": (dict(pyramid_height=1, icp_iters=(4,), volume_dims=(64,) * 3,
                     volume_range=(2.0, 2.0, 2.0), volume_origin=(-1.0, -1.0, 0.5),
                     integrate_mode="gather"), "SSE4_2"),
+    "gather_128": (dict(CFG, integrate_mode="gather"), "SSE4_2"),
 }
 
 
@@ -179,10 +183,34 @@ def test_integrate_fold_matches_jax(folds, mode, monkeypatch):
             slabs.append(vol)
         stacked = [torch.cat([s[k] for s in slabs], dim=sd).numpy() for k in range(3)]
         assert (stacked[1] != prior[1]).sum() > 5000
-        if mode == "gather":
+        if MODES[mode][0]["integrate_mode"] == "gather":
             for name, got, w in zip(("tsdf", "weight", "colour"), stacked, whole):
                 np.testing.assert_array_equal(got, w, err_msg=f"shard dim {sd}: {name}")
         else:
             mismatch = np.abs(stacked[0].astype(np.float32) - whole[0]) / 32767.0 > TSDF_TOL
             assert mismatch.mean() < TSDF_SHARE, (sd, mismatch.mean())
             assert (stacked[1] != whole[1]).mean() < WEIGHT_SHARE, sd
+
+
+def test_gather_integrate_matches_jax_at_128(folds):
+    """`integrate_gather` on the whole 128^3 volume of the random prior and
+    on its [64, 128, 128] Z slab at offset 0, bit for bit against the JAX
+    dispatcher. At 3 m over 128 voxels the voxel size is not a power of
+    two, so this holds only because the port computes the x and y terms of
+    the camera-frame position as XLA reassociates them, (R * vs) * index
+    (a slab's step here was one TSDF step off on 4 voxels before)."""
+    from kinfu_tpu_torch.volume.integrate import integrate_gather
+
+    priors, out = folds
+    prior = priors["gather_128"]
+    params = KinFuParams(**MODES["gather_128"][0])
+    depth_m, color = _frame()
+    for name, arrays, want in (("whole", prior, out["gather_128"][0]),
+                               ("slab", [_slab(a, 0, 0) for a in prior],
+                                out["gather_128"][1])):
+        vol = TSDFVolume(*(torch.as_tensor(a.copy()) for a in arrays))
+        integrate_gather(vol, torch.as_tensor(depth_m), torch.as_tensor(color),
+                         _vol2cam(params), INTR, params)
+        assert (vol.weight.numpy() != arrays[1]).sum() > 50000, name
+        for field, got, w in zip(("tsdf", "weight", "colour"), vol, want):
+            np.testing.assert_array_equal(got.numpy(), w, err_msg=f"{name} {field}")

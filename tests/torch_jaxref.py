@@ -387,6 +387,24 @@ def kinfu_track(params_kw, intr, sequences, auto_reset=True):
     return out
 
 
+def streaming_track(params_kw, intr, frames, margin_frac=0.25):
+    """pipeline.streaming: init_streaming_state + the jitted streaming step
+    over the frames; returns, per frame, the state as numpy fields (with
+    "origin_vox") and the step's outputs."""
+    import jax.numpy as jnp
+
+    from kinfu_tpu.config import KinFuParams
+    from kinfu_tpu.pipeline.streaming import init_streaming_state, make_streaming_step_fn
+
+    params = KinFuParams(**dict(params_kw))
+    step = make_streaming_step_fn(params, _intr(intr), donate=False, margin_frac=margin_frac)
+    st, out = init_streaming_state(params, _intr(intr)), []
+    for d, c in frames:
+        st, o = step(st, jnp.asarray(d), jnp.asarray(c))
+        out.append(dict(_state_np(st.kinfu, o), origin_vox=np.asarray(st.origin_vox)))
+    return out
+
+
 def relocalize_step(state, depth, color, seed_pose, params_kw, intr):
     """pipeline.kinfu.relocalize_step, jitted as the session runs it, on a
     state given as numpy fields: (state', outputs) as numpy fields."""
