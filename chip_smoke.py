@@ -3,7 +3,8 @@
 
 Phases; any failure exits non-zero before the result line:
   1. report the card (torch and nvidia-smi);
-  2. build the CUDA kernels of kinfu_tpu_torch/csrc from this checkout;
+  2. build the CUDA kernels of kinfu_tpu_torch/csrc from this checkout: the
+     normal build and the bounds-checked one of phase 7, every nvcc at once;
   3. hold every kernel on the step's path against its plain PyTorch version
      at the main path's shapes, and time both with CUDA events: K1
      icp_normal_eqs on frame 3's measurement pyramid against the model maps
@@ -25,6 +26,11 @@ Phases; any failure exits non-zero before the result line:
      of its admitted planes, and K4's count of rays whose hit or back bits
      differ from the plain version's (no profiler before phase 6: once
      started in a process it slows every later launch);
+  3c. kinfu_tpu_torch/tools/raycast_parity_probe.py at 512^3 / 640x480: one
+     frame fused at the identity pose, the warped raycast (K4 and K5)
+     against the unit-step march; prints its JSON line and fails where the
+     march hits 1% of the pixels or more that the sweep misses (the
+     reference's target, DIVERGENCES.md item 20);
   4. count the host syncs of a step (sync-debug mode "warn"), then run the
      50-frame orbit of bench.py (640x480, fx=fy=525, 512^3 over 3 m,
      3-level pyramid, ICP (4,5,10), icp_mode="auto", which is the warped ICP
@@ -33,8 +39,10 @@ Phases; any failure exits non-zero before the result line:
      (a host sync in the step fails the run); every frame after the first
      must track, the aligned ATE against exact ground truth must be <= 1 mm,
      K1 must launch 19 times a frame, K2 and K5 once, every other kernel at
-     least once; then 10 frames with icp_mode="gather", also under
-     sync-debug mode "error", which must track without launching K1;
+     least once; the same frames through tools/accuracy_run.py's `track`
+     and `metrics`, whose ATE must equal the orbit's; then 10 frames with
+     icp_mode="gather", also under sync-debug mode "error", which must
+     track without launching K1;
   4b. the corner orbit of bench.py --corner (the orbit yawed 50 degrees
      through the corner-facing scene), 50 frames under sync-debug mode
      "error", with the orbit's checks, the gap to the JAX package's golden
@@ -123,7 +131,8 @@ Phases; any failure exits non-zero before the result line:
      torch.profiler). Then `python -m
      kinfu_tpu_torch sweep --devices 2` over two copies of phase 5b's PNGs:
      each sequence's poses are phase 5b's session's;
-  6. profile 8 steps of a fresh run of the orbit: kernel time per frame,
+  6. (through kinfu_tpu_torch/tools/trace_step.py) profile 8 steps of a
+     fresh run of the orbit: kernel time per frame,
      each port kernel's device time per frame and a launch (per frame, its
      longest launch, the active face, and the others, gated off), and the
      device's idle share (the full table goes to --profile-table); then the
@@ -133,7 +142,13 @@ Phases; any failure exits non-zero before the result line:
      of the non-fused orbit, one relocalize_step call, 8 steps of the
      streaming corridor over frames where the grid shifts (90-97), and one
      grid shift alone;
-  7. print one JSON line describing the kernels and the shard forms (with
+  7. the sanitizer pass (kinfu_tpu_torch/tools/sanitize.py) in child
+     processes, in the bounds-checked build of the kernels that phase 2
+     built beside the normal one (compute-sanitizer refuses this card's
+     machine): every form of K1-K5 and the shard forms at the main path's
+     shapes and at test scale must run without a fault and launch each
+     kernel; then K5 with a vertex buffer one row short must trap;
+  8. print one JSON line describing the kernels and the shard forms (with
      each kernel's launches on every path this script drives, the sharded
      ones summed over the ranks), then the card, then the result line.
 
@@ -1125,108 +1140,36 @@ def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
 def profile_steps(frames, params, intr, device, out_path: str, ms_frame: float,
                   n: int = 10, first: int = 2, label: str = "orbit",
                   icp: bool = True, streaming: bool = False) -> None:
-    """Phase 6: torch.profiler over frames first..n-1 of a fresh run (with
-    `streaming`, of the streaming step). Prints
-    the kernels by device time, their sum per frame and its share of
-    `ms_frame` (the step's time without the profiler), each port kernel's
-    device time per frame and a launch (per frame, its longest launch and
-    the median of the others: where one face is live, the active face and
-    the gated-off ones), and writes the full table to `out_path`; with
-    `icp`, then profiles the ICP of a frame alone (`profile_icp`)."""
+    """Phase 6, through kinfu_tpu_torch/tools/trace_step.py: torch.profiler
+    over frames first..n-1 of a fresh run (with `streaming`, of the
+    streaming step). Prints the kernels by device time, their sum per frame
+    and its share of `ms_frame` (the step's time without the profiler), each
+    port kernel's device time per frame and a launch (per frame, its longest
+    launch and the median of the others: where one face is live, the active
+    face and the gated-off ones), and writes the full table to `out_path`;
+    with `icp`, then the ICP of a frame alone (`trace_step.icp_profile`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from kinfu_tpu_torch.pipeline.kinfu import init_state, make_step_fn
+    from kinfu_tpu_torch.tools import trace_step as ts
 
-    if streaming:
-        from kinfu_tpu_torch.pipeline.streaming import (
-            init_streaming_state as init_state,
-            make_streaming_step_fn as make_step_fn,
-        )
-    step = make_step_fn(params, intr)
-    state = init_state(params, intr, device=device)
-    dev = [(torch.as_tensor(d, device=device), torch.as_tensor(c, device=device))
-           for d, c in frames[:n]]
-    for d, c in dev[:first]:
-        state, _ = step(state, d, c)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for d, c in dev[first:]:
-            state, _ = step(state, d, c)
-        torch.cuda.synchronize()
-    m = n - first
-    wall = (time.perf_counter() - t0) * 1e3 / m
-    # kernel events only: an operator's self device time repeats its kernels'
-    ev = sorted((e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in ev) / 1e3 / m
-    launches = sum(e.count for e in ev) / m
+    prof, state = ts.trace_steps(frames[:n], params, intr, device, first=first,
+                                 streaming=streaming)
+    m, busy = prof.calls, prof.busy_ms
     print(f"[6] profile, {label}, frames {first}-{n - 1} of a fresh run: kernels busy "
-          f"{busy:.3f} ms/frame in {launches:.0f} launches/frame; {busy / ms_frame:.1%} of the "
+          f"{busy:.3f} ms/frame in {prof.count:.0f} launches/frame; {busy / ms_frame:.1%} of the "
           f"{ms_frame:.3f} ms/frame step (device idle {1 - busy / ms_frame:.1%}); "
-          f"{wall:.1f} ms/frame wall under the profiler", flush=True)
-    for e in ev[:12]:
-        print(f"      {e.self_device_time_total / 1e3 / m:9.3f} ms/frame "
-              f"{e.count // m:5d}x  {e.key[:90]}", flush=True)
-    launches_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    for key, name, *_ in KERNELS:
-        mine = sorted((e for e in launches_ev if f"{key}_kernel" in e.name),
-                      key=lambda e: e.time_range.start)
-        each = [e.time_range.elapsed_us() / 1e3 for e in mine]
-        per = len(each) // m
-        line = (f"    {name}: device {sum(each) / m:.4f} ms/frame in "
-                f"{len(each) / m:.0f} launches/frame")
-        if per > 1 and per * m == len(each):
-            frames_ = [sorted(each[i * per:(i + 1) * per]) for i in range(m)]
-            line += (f"; a launch: {float(np.median([f[-1] for f in frames_])):.4f} ms the "
-                     f"longest of a frame, {float(np.median([t for f in frames_ for t in f[:-1]])):.4f}"
-                     f" ms the others (medians)")
-        print(line, flush=True)
+          f"{prof.wall_ms:.1f} ms/frame wall under the profiler", flush=True)
+    for name, total, count in prof.rows[:12]:
+        print(f"      {total / m:9.3f} ms/frame {count // m:5d}x  {name[:90]}", flush=True)
+    for line in ts.kernel_lines(prof, [(key, name) for key, name, *_ in KERNELS]):
+        print(f"    {line}", flush=True)
     Path(out_path).parent.mkdir(parents=True, exist_ok=True)
-    Path(out_path).write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=80, max_name_column_width=90))
+    Path(out_path).write_text(prof.table)
     if icp:
-        profile_icp(state, dev[-1][0], params, intr, device)
-
-
-def profile_icp(state, depth, params, intr, device, n: int = 8) -> None:
-    """Phase 6, the ICP of a frame alone: device time and launches a call of
-    rigid_icp (K1's finishing form, one host call) and of the same ICP as
-    one-iteration K1 launches with the eager finish, each over `n` calls on
-    the measurement pyramid of `depth` against the model maps of `state`."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid
-    from kinfu_tpu_torch.ops import icp_warped as iw
-    from kinfu_tpu_torch.tracking import icp as ticp
-
-    p = params
-    _, cvs, cns = build_measurement_pyramid(
-        depth, intr, pyramid_height=p.pyramid_height,
-        bfilter_kernel_size=p.bfilter_kernel_size, bfilter_color_sigma=p.bfilter_color_sigma,
-        bfilter_spatial_sigma=p.bfilter_spatial_sigma, depth_scale=p.depth_scale,
-        max_dist=p.dfilter_dist, normal_disc_threshold=p.normal_disc_threshold)
-    args = (cvs, cns, state.model_vmaps, state.model_nmaps, intr, params)
-    for name, fn in (("rigid_icp, one host call", lambda: ticp.rigid_icp(*args)),
-                     ("one-iteration K1 launches with the eager finish",
-                      lambda: ticp.icp_loop(*args, iw.icp_normal_eqs_warped))):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in ev) / 1e3 / n
-        launches = sum(e.count for e in ev) / n
-        print(f"    ICP of a frame, {name}: device {busy:.4f} ms in {launches:.0f} launches",
-              flush=True)
+        depth = torch.as_tensor(frames[n - 1][0], device=device)
+        for name, ms, count in ts.icp_profile(state, depth, params, intr):
+            print(f"    ICP of a frame, {name}: device {ms:.4f} ms in {count:.0f} launches",
+                  flush=True)
 
 
 def gate_runs(gates: np.ndarray) -> str:
@@ -1670,11 +1613,10 @@ def profile_relocalize(frames, params, intr, device, n: int = 10) -> None:
     on the state fused from `n` orbit frames, seeded from that state's pose
     (after one call that warms its caches)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kinfu_tpu_torch.geometry.se3 import pose_matrix
     from kinfu_tpu_torch.pipeline.kinfu import init_state, make_step_fn, relocalize_step
+    from kinfu_tpu_torch.tools.trace_step import profile
 
     step = make_step_fn(params, intr, auto_reset=False)
     state = init_state(params, intr, device=device)
@@ -1686,15 +1628,11 @@ def profile_relocalize(frames, params, intr, device, n: int = 10) -> None:
     d, c = dev[-1]
     state, _ = relocalize_step(state, d, c, seed, params, intr)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, out = relocalize_step(state, d, c, seed, params, intr)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in ev) / 1e3
-    launches = sum(e.count for e in ev)
-    print(f"    relocalize_step, one call: device {busy:.4f} ms in {launches} launches "
-          f"(ok {bool(out.tracking_ok)})", flush=True)
+    outs = []
+    prof = profile(lambda: outs.append(relocalize_step(state, d, c, seed, params, intr)), 1,
+                   device)
+    print(f"    relocalize_step, one call: device {prof.busy_ms:.4f} ms in {prof.count:.0f} "
+          f"launches (ok {bool(outs[0][1].tracking_ok)})", flush=True)
 
 
 # ---- phase 5e: the streaming (camera-following) volume --------------------
@@ -1966,9 +1904,8 @@ def profile_shift(params, device, n: int = 4) -> None:
     `shift_volume` call (by (0, 0, 2) voxels; a zero shift runs the same
     operations) on a volume of the workload's size, over `n` calls."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    from kinfu_tpu_torch.tools.trace_step import profile
     from kinfu_tpu_torch.volume.stream import shift_volume
     from kinfu_tpu_torch.volume.tsdf import create_volume
 
@@ -1977,16 +1914,9 @@ def profile_shift(params, device, n: int = 4) -> None:
     shift[2] = 2
     shift_volume(vol, shift)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            shift_volume(vol, shift)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in ev) / 1e3 / n
-    launches = sum(e.count for e in ev) / n
-    print(f"    shift_volume, one call on {tuple(vol.tsdf.shape)}: device {busy:.4f} ms in "
-          f"{launches:.0f} launches (bound {bound(2 * nbytes(*vol), 0)[0]:.4f} ms, bytes)",
+    prof = profile(lambda: shift_volume(vol, shift), n, device)
+    print(f"    shift_volume, one call on {tuple(vol.tsdf.shape)}: device {prof.busy_ms:.4f} ms "
+          f"in {prof.count:.0f} launches (bound {bound(2 * nbytes(*vol), 0)[0]:.4f} ms, bytes)",
           flush=True)
 
 
@@ -2047,27 +1977,6 @@ def _rank_mesh(rank: int, device, shard_dim: int):
                 shard_dim=shard_dim)
 
 
-def _padded_slab(tsdf, sd: int, rank: int, halo: int):
-    """Rank `rank`'s slab of `tsdf` along `sd` with `halo` rows of its
-    neighbours a side and zero rows past the volume: what
-    `parallel/mesh.py::halo_exchange` gives the rank."""
-    import torch
-
-    L = tsdf.shape[sd]
-    Ll = L // SHARD_RANKS
-    lo, hi = rank * Ll - halo, (rank + 1) * Ll + halo
-    core = tsdf.narrow(sd, max(lo, 0), min(hi, L) - max(lo, 0))
-    parts = []
-    for rows in (max(0, -lo), None, max(0, hi - L)):
-        if rows is None:
-            parts.append(core)
-        elif rows:
-            shape = list(tsdf.shape)
-            shape[sd] = rows
-            parts.append(torch.zeros(shape, dtype=tsdf.dtype, device=tsdf.device))
-    return torch.cat(parts, dim=sd).contiguous()
-
-
 def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms: float):
     """Phase 4d, part 1, in this process: the shard forms against their
     plain versions at the main path's shapes, on the 512^3 volume fused
@@ -2095,6 +2004,7 @@ def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms:
     from kinfu_tpu_torch.ops import facewarp as fw
     from kinfu_tpu_torch.ops import icp_warped as iw
     from kinfu_tpu_torch.parallel.sharded import HALO8, ray_shard, row_shard
+    from kinfu_tpu_torch.tools.sanitize import padded_slab
     from kinfu_tpu_torch.volume.integrate import fold_shard_origin
     from kinfu_tpu_torch.volume.tsdf import TSDFVolume, pack_rgb
 
@@ -2176,7 +2086,7 @@ def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms:
                             + OPS["face_integrate_colour"] * n_col)
                     del vk, vp
 
-                padded = _padded_slab(vol.tsdf, sd, r, HALO8)
+                padded = padded_slab(vol.tsdf, sd, r, SHARD_RANKS, HALO8)
                 for f, frm in faces:
                     sh = ray_shard(frm, padded.shape, L, Ll, off0, sd)
                     hk, bk = fr.sweep_rays(padded, frm, prm4[f], rspec, sh)
@@ -2435,10 +2345,9 @@ def _profile_rank(mesh, job, depths, colors, first: int = 2, n: int = 6):
     import dataclasses
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kinfu_tpu_torch.parallel.sharded import init_state_local, make_sharded_step_fn
+    from kinfu_tpu_torch.tools.trace_step import profile
 
     params = job["legs"][0][2]
     m = dataclasses.replace(mesh, shard_dim=0)
@@ -2449,21 +2358,23 @@ def _profile_rank(mesh, job, depths, colors, first: int = 2, n: int = 6):
     for d, c in frames[:first]:
         state, _ = step(state, d, c)
     _sync(m.device)
-    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if m.rank == 0
-           else contextlib.nullcontext())
-    with ctx as prof:
-        for d, c in frames[first:]:
-            state, _ = step(state, d, c)
-        _sync(m.device)
+    rest = iter(frames[first:])
+    box = [state]
+
+    def one():
+        d, c = next(rest)
+        box[0], _ = step(box[0], d, c)
+
     if m.rank != 0:
+        for _ in range(n - first):
+            one()
+        _sync(m.device)
         return None
-    k = n - first
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {"busy": sum(e.time_range.elapsed_us() for e in ev) / 1e3 / k,
-           "launches": len(ev) / k}
+    prof = profile(one, n - first, m.device)
+    out = {"busy": prof.busy_ms, "launches": prof.count}
     for key, *_ in KERNELS:
-        mine = [e.time_range.elapsed_us() / 1e3 for e in ev if f"{key}_kernel" in e.name]
-        out[key] = (sum(mine) / k, len(mine) / k)
+        mine = prof.kernel(key)
+        out[key] = (sum(mine) / prof.calls, len(mine) / prof.calls)
     return out
 
 
@@ -2664,6 +2575,62 @@ def run_sweep(cli_dir: Path, session_poses, n: int):
     return launches
 
 
+# ---- phase 3c: raycast parity; phase 7: the checked build ------------------
+
+#: DIVERGENCES.md item 20, ACCURACY.md:27-30: the share of pixels that the
+#: unit-step march hits and the warped sweep misses must stay under 1%
+PARITY_MAX = 0.01
+#: the checked build's runs (tools/sanitize.py), seconds each at most
+SANITIZE_TIMEOUT = 300
+
+
+def run_parity(params, intr, device, smi: str) -> None:
+    """Phase 3c: kinfu_tpu_torch/tools/raycast_parity_probe.py at the main
+    path's size, one frame fused at the identity pose: the warped raycast
+    (K4 and K5) against the unit-step march. Fails where the march hits
+    PARITY_MAX of the pixels or more that the sweep misses."""
+    from kinfu_tpu_torch.tools.raycast_parity_probe import probe
+
+    t0 = time.perf_counter()
+    res = probe(params, intr, device)
+    print(f"[3c] raycast parity, warped sweep against the unit-step march "
+          f"({time.perf_counter() - t0:.1f} s) on {smi}: {json.dumps(res)}", flush=True)
+    if not res["march_hits_sweep_misses"] < PARITY_MAX:
+        _fail(f"raycast parity: the march hits {res['march_hits_sweep_misses']:.4%} of the "
+              f"pixels that the sweep misses, not under {PARITY_MAX:.0%}")
+
+
+def run_sanitizer(smi: str) -> None:
+    """Phase 7: kinfu_tpu_torch/tools/sanitize.py in child processes, in the
+    bounds-checked build of the kernels (compute-sanitizer refuses this
+    card's machine): every kernel form at the main path's shapes and at
+    test scale, each run ending without a fault and launching each of the
+    five kernels; then the negative run, K5 with an output one row short,
+    which must trap, or the check is not live."""
+    from kinfu_tpu_torch.tools import sanitize
+
+    for scale in ("main", "test"):
+        r = sanitize.run_child(scale, timeout=SANITIZE_TIMEOUT)
+        print(f"[7] checked build, every kernel form at scale {scale}: rc {r['rc']}, "
+              f"{r['seconds']:.1f} s, launches {r['launches']}  [{smi}]", flush=True)
+        if r["rc"] != 0 or r["launches"] is None:
+            print(r["output"][-4000:], flush=True)
+            _fail(f"the checked build's run at scale {scale} failed (a kernel indexed outside "
+                  f"its arrays: {r['trap']})")
+        for key, name, *_ in KERNELS:
+            if r["launches"].get(key, 0) <= 0:
+                _fail(f"{name} was not launched in the checked build's run at scale {scale}")
+    r = sanitize.run_child(negative=True, timeout=SANITIZE_TIMEOUT)
+    out = r["output"]
+    caught = (r["rc"] != 0 and "negative: launched" in out and "negative: no fault" not in out
+              and "CUDA error" in out)
+    print(f"[7] negative run, K5 with a vertex buffer one row short: rc {r['rc']}, "
+          f"{r['seconds']:.1f} s, trapped: {caught}; the kernel's report: {r['trap']}", flush=True)
+    if not caught:
+        print(out[-4000:], flush=True)
+        _fail("the checked build did not trap on an output one row short: the check is not live")
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2705,8 +2672,8 @@ def main() -> None:
           f"{count} visible); nvidia-smi: {smi}", flush=True)
 
     t_build = kernels.timed_build()
-    print(f"[2] built and loaded kernels from {kernels.CSRC.relative_to(REPO)} "
-          f"in {t_build:.1f} s", flush=True)
+    print(f"[2] built the kernels of {kernels.CSRC.relative_to(REPO)} (the normal and the "
+          f"checked build) and loaded the normal one in {t_build:.1f} s", flush=True)
 
     params, intr = configure()
     if args.count_syncs:
@@ -2744,6 +2711,8 @@ def main() -> None:
     res["resample_face"] = check_composite(state, [("orbit", gt[3])] + inside, params, intr,
                                            device, timed="orbit")
     del state
+    torch.cuda.empty_cache()
+    run_parity(params, intr, device, smi)
     torch.cuda.empty_cache()
 
     syncs = count_syncs(frames[:6], params, intr, device)
@@ -2787,6 +2756,14 @@ def main() -> None:
     if ate > ATE_MAX:
         _fail(f"aligned ATE {ate * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
     check_launches(launches, n, k1_want, "the orbit")
+    from kinfu_tpu_torch.tools import accuracy_run
+
+    acc_poses, acc_oks = accuracy_run.track(frames[:n], params, intr, device)
+    acc = accuracy_run.metrics(acc_poses, gt[:n])
+    print(f"    tools/accuracy_run.py on these frames: {json.dumps(acc)}", flush=True)
+    if acc["ate_rmse_m"] != ate or not acc_oks[1:].all():
+        _fail(f"accuracy_run's ATE {acc['ate_rmse_m']} is not the orbit's {ate}")
+    torch.cuda.empty_cache()
     if syncs:
         _fail(f"the step synchronised the host {syncs:g} times a frame")
 
@@ -2870,6 +2847,8 @@ def main() -> None:
                   stream_ms, n=STREAM_PROFILE[1], first=STREAM_PROFILE[0],
                   label="streaming corridor (the grid shifts)", icp=False, streaming=True)
     profile_shift(params, device)
+    torch.cuda.empty_cache()
+    run_sanitizer(smi)
 
     paths = {"orbit": launches, "session": s_launches, "cli_session": cli_launches,
              "non_fused": nf_launches, "relocalize_step": reloc_launches,

@@ -50,6 +50,7 @@ SECONDS = {
     "test_pipeline.py": 51,
     "test_torch_sharded_step.py": 39,
     "test_session.py": 38,
+    "test_torch_tools.py": 38,
     "test_pallas_icp.py": 35,
     "test_torch_icp_warped.py": 30,
     "test_torch_icp.py": 25,
@@ -57,6 +58,7 @@ SECONDS = {
     "test_frontend.py": 21,
     "test_tilegather.py": 19,
     "test_volume.py": 19,
+    "test_torch_sanitizers.py": 17,
     "test_torch_foundations.py": 16,
     "test_datasets.py": 12,
     "test_icp.py": 12,

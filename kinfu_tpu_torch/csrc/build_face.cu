@@ -56,6 +56,12 @@ constexpr int kTileY = 8;
 // Rows allocated to mip level l: size >> l rounded up to a multiple of 8.
 __device__ __forceinline__ int level_rows(int size, int l) { return ((size >> l) + 7) & ~7; }
 
+// The lengths in elements of the kernel's arrays, from the tensors the
+// wrapper passes (checked.cuh).
+struct Lens {
+  long long depth, col, prm6, range, color, r_max;
+};
+
 // The level offsets are running sums in the loops below, not an array: a
 // level table passed by value and indexed by the loop counter is copied to
 // every thread's local memory (ptxas -v shows it as a stack frame), which
@@ -64,13 +70,13 @@ __global__ void __launch_bounds__(kTileX * kTileY)
 build_face_kernel(const float* __restrict__ depth, const int* __restrict__ col,
                   const float* __restrict__ prm6, short* __restrict__ range_out,
                   int* __restrict__ color_out, int* __restrict__ r_max, int h, int w,
-                  int size, int levels, int stack_rows) {
+                  int size, int levels, int stack_rows, Lens L) {
   const int f = blockIdx.z;
-  const float* prm = prm6 + f * kPrm;
-  if (prm[13] == 0.0f) return;  // face gate off: no stack, r_max[f] stays 0
+  // face f's parameter k
+  auto prm = [&](int k) { return KINFU_AT(prm6, L.prm6, f * kPrm + k); };
+  if (prm(13) == 0.0f) return;  // face gate off: no stack, r_max[f] stays 0
   const long long face_px = static_cast<long long>(stack_rows) * size;
-  short* rng = range_out + f * face_px;
-  int* colo = color_out + f * face_px;
+  const long long face0 = f * face_px;
   const int j = blockIdx.x * kTileX + threadIdx.x;
   const int i = blockIdx.y * kTileY + threadIdx.y;
 
@@ -79,21 +85,21 @@ build_face_kernel(const float* __restrict__ depth, const int* __restrict__ col,
     // the face focal and the camera focals are static in the JAX package,
     // whose compiler turns a division by them into a multiplication by the
     // float32 reciprocal; 1.0f / x is that reciprocal (IEEE division)
-    const float inv_f = 1.0f / prm[14], c = prm[15];
-    const float fx = prm[9], fy = prm[10], cx = prm[11], cy = prm[12];
+    const float inv_f = 1.0f / prm(14), c = prm(15);
+    const float fx = prm(9), fy = prm(10), cx = prm(11), cy = prm(12);
     const float inv_fx = 1.0f / fx, inv_fy = 1.0f / fy;
     const float dpx = (static_cast<float>(j) - c) * inv_f;
     const float dpy = (static_cast<float>(i) - c) * inv_f;
-    const float dcx = prm[0] * dpx + prm[1] * dpy + prm[2];
-    const float dcy = prm[3] * dpx + prm[4] * dpy + prm[5];
-    const float dcz = prm[6] * dpx + prm[7] * dpy + prm[8];
+    const float dcx = prm(0) * dpx + prm(1) * dpy + prm(2);
+    const float dcy = prm(3) * dpx + prm(4) * dpy + prm(5);
+    const float dcz = prm(6) * dpx + prm(7) * dpy + prm(8);
     const bool in_front = dcz > 1e-6f;
     const float zs = in_front ? dcz : 1.0f;
     const int u = kinfu::rint_clamped(dcx / zs * fx + cx);
     const int v = kinfu::rint_clamped(dcy / zs * fy + cy);
     const bool inb = in_front && u >= 0 && u < w && v >= 0 && v < h;
-    const float d = kinfu::gather2d(depth, h, w, v, u);
-    const int cval = kinfu::gather2d(col, h, w, v, u);
+    const float d = kinfu::gather2d(depth, L.depth, h, w, v, u);
+    const int cval = kinfu::gather2d(col, L.col, h, w, v, u);
 
     // range of the ROUNDED pixel's ray: depth * ||K^-1 [u, v, 1]|| in mm
     const float lx = (static_cast<float>(u) - cx) * inv_fx;
@@ -112,9 +118,9 @@ build_face_kernel(const float* __restrict__ depth, const int* __restrict__ col,
       const int m = (1 << l) - 1, wl = size >> l;
       if ((i & m) || (j & m)) break;
       if ((i >> l) < wl && (j >> l) < wl) {
-        const long long o = static_cast<long long>(off + (i >> l)) * size + (j >> l);
-        rng[o] = rv;
-        colo[o] = cv;
+        const long long o = face0 + static_cast<long long>(off + (i >> l)) * size + (j >> l);
+        KINFU_AT(range_out, L.range, o) = rv;
+        KINFU_AT(color_out, L.color, o) = cv;
       }
       off += level_rows(size, l);
     }
@@ -125,9 +131,9 @@ build_face_kernel(const float* __restrict__ depth, const int* __restrict__ col,
     for (int l = 0; l < levels; ++l) {
       const int wl = size >> l, rows = level_rows(size, l);
       if (i < rows && (i >= wl || j >= wl)) {
-        const long long o = static_cast<long long>(off + i) * size + j;
-        rng[o] = 0;
-        colo[o] = 0;
+        const long long o = face0 + static_cast<long long>(off + i) * size + j;
+        KINFU_AT(range_out, L.range, o) = 0;
+        KINFU_AT(color_out, L.color, o) = 0;
       }
       off += rows;
     }
@@ -141,20 +147,24 @@ build_face_kernel(const float* __restrict__ depth, const int* __restrict__ col,
   if (threadIdx.x == 0 && threadIdx.y == 0) {
     int m = 0;
     for (int k = 0; k < kTileY; ++k) m = max(m, s_max[k]);
-    if (m > 0) atomicMax(r_max + f, m);
+    if (m > 0) atomicMax(&KINFU_AT(r_max, L.r_max, f), m);
   }
 }
 
 }  // namespace
 
+// lens: the six arrays' lengths in elements, in argument order (int64)
 extern "C" int kinfu_build_faces(const void* depth, const void* col, const void* prm6,
                                  void* range_out, void* color_out, void* r_max, int h, int w,
-                                 int size, int levels, void* stream) {
+                                 int size, int levels, const void* lens, void* stream) {
   if (levels < 1 || size < 1 || (size >> (levels - 1)) < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int stack_rows = 0;
   for (int l = 0; l < levels; ++l) stack_rows += ((size >> l) + 7) & ~7;
+  const long long* n = static_cast<const long long*>(lens);
+  const Lens L{n[0], n[1], n[2], n[3], n[4], n[5]};
+  if (L.r_max < kFaces) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(r_max, 0, kFaces * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -166,6 +176,6 @@ extern "C" int kinfu_build_faces(const void* depth, const void* col, const void*
   build_face_kernel<<<grid, block, 0, s>>>(
       static_cast<const float*>(depth), static_cast<const int*>(col),
       static_cast<const float*>(prm6), static_cast<short*>(range_out),
-      static_cast<int*>(color_out), static_cast<int*>(r_max), h, w, size, levels, stack_rows);
+      static_cast<int*>(color_out), static_cast<int*>(r_max), h, w, size, levels, stack_rows, L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,6 +71,12 @@ struct Footprint {
   int x_lo, x_hi, y_lo, y_hi;  // primed, inclusive; empty when a hi < its lo
 };
 
+// The lengths in elements of the kernel's arrays, from the tensors the
+// wrapper passes (checked.cuh).
+struct Lens {
+  long long tsdf, weight, color, frange, fcolor, prm, table;
+};
+
 __device__ __forceinline__ int lower_index(float v, int n) {
   return max(static_cast<int>(floorf(fminf(fmaxf(v, -2.0f), n + 2.0f))) - 1, 0);
 }
@@ -96,17 +102,17 @@ struct Frustum {
   bool ok;
 };
 
-__device__ Frustum camera_frustum(const float* __restrict__ prm) {
-  const float* a = prm + 16;
-  const float w = prm[12], h = prm[13];
+__device__ Frustum camera_frustum(const float* __restrict__ prm, long long n_prm) {
+  auto a = [&](int k) { return KINFU_AT(prm, n_prm, 16 + k); };
+  const float w = KINFU_AT(prm, n_prm, 12), h = KINFU_AT(prm, n_prm, 13);
   Frustum fr{INFINITY, -INFINITY, INFINITY, -INFINITY, true};
   for (int k = 0; k < 4; ++k) {
-    const float lx = ((k & 1 ? w : -1.0f) - a[11]) / a[9];
-    const float ly = ((k & 2 ? h : -1.0f) - a[12]) / a[10];
+    const float lx = ((k & 1 ? w : -1.0f) - a(11)) / a(9);
+    const float ly = ((k & 2 ? h : -1.0f) - a(12)) / a(10);
     // primed direction = A^T (lx, ly, 1)
-    const float px = a[0] * lx + a[3] * ly + a[6];
-    const float py = a[1] * lx + a[4] * ly + a[7];
-    const float pz = a[2] * lx + a[5] * ly + a[8];
+    const float px = a(0) * lx + a(3) * ly + a(6);
+    const float py = a(1) * lx + a(4) * ly + a(7);
+    const float pz = a(2) * lx + a(5) * ly + a(8);
     fr.ok = fr.ok && pz > 0.0f;
     fr.tx_lo = fminf(fr.tx_lo, px / pz);
     fr.tx_hi = fmaxf(fr.tx_hi, px / pz);
@@ -116,7 +122,7 @@ __device__ Frustum camera_frustum(const float* __restrict__ prm) {
   return fr;
 }
 
-// The primed voxels of plane row T that can pass the sweep's tests: the
+// The primed voxels of plane zp (row T of the table) that can pass the sweep's tests: the
 // face pixel u = rint(au x + bu) lies in [0, width) only where au x + bu lies
 // in [-0.5, width - 0.5]; the ownership |x vsx - cx| <= dzs only where x
 // lies in [(cx - dzs) / vsx, (cx + dzs) / vsx] (au, vsx > 0); and the pixel
@@ -125,11 +131,12 @@ __device__ Frustum camera_frustum(const float* __restrict__ prm) {
 // half a pixel of the plane's mip level, vsx / (2 au dzs), plus a margin of
 // one level-0 face pixel, 1 / f. The same for y. Widened by one voxel on
 // each side against rounding.
-__device__ Footprint plane_footprint(const float* T, const Sweep& w, const Frustum& fr, int Xp,
-                                     int Yp) {
+__device__ Footprint plane_footprint(const float* __restrict__ table, long long n_table, int zp,
+                                     const Sweep& w, const Frustum& fr, int Xp, int Yp) {
+  auto T = [&](int k) { return KINFU_AT(table, n_table, zp * kTableCols + k); };
   const Footprint none{0, -1, 0, -1};
-  if (T[8] == 0.0f) return none;
-  const float dzs = T[1], au = T[2], bu = T[3], av = T[4], bv = T[5], width = T[7];
+  if (T(8) == 0.0f) return none;
+  const float dzs = T(1), au = T(2), bu = T(3), av = T(4), bv = T(5), width = T(7);
   float x0 = fmaxf((-0.5f - bu) / au, (w.cx - dzs) / w.vsx);
   float x1 = fminf((width - 0.5f - bu) / au, (w.cx + dzs) / w.vsx);
   float y0 = fmaxf((-0.5f - bv) / av, (w.cy - dzs) / w.vsy);
@@ -156,25 +163,27 @@ struct Row {
   bool ok;
 };
 
-__device__ __forceinline__ Row plane_row(const float* __restrict__ table, const Sweep& w, int zp,
-                                         int yp, int gt_y, int F) {
-  const float* T = table + static_cast<long long>(zp) * kTableCols;
+__device__ __forceinline__ Row plane_row(const float* __restrict__ table, long long n_table,
+                                         const Sweep& w, int zp, int yp, int gt_y, int F) {
+  auto T = [&](int k) {
+    return KINFU_AT(table, n_table, static_cast<long long>(zp) * kTableCols + k);
+  };
   Row r;
   // the TPU kernel's operation order: (local * vs - c) + base * vs over
   // 8-row strips in y
   r.dy = (static_cast<float>(yp & 7) * w.vsy - w.cy) + static_cast<float>(yp & ~7) * w.vsy;
-  r.dz = T[0];
-  r.dzs = T[1];
-  r.au = T[2];
-  r.bu = T[3];
-  const float av = T[4], bv = T[5];
-  r.row_off = static_cast<int>(T[6]);
-  r.width = static_cast<int>(T[7]);
+  r.dz = T(0);
+  r.dzs = T(1);
+  r.au = T(2);
+  r.bu = T(3);
+  const float av = T(4), bv = T(5);
+  r.row_off = static_cast<int>(T(6));
+  r.width = static_cast<int>(T(7));
   r.v = static_cast<int>(
       fminf(fmaxf(rintf(av * static_cast<float>(yp) + bv), -1.0f), static_cast<float>(F)));
   const float ady = fabsf(r.dy);
   const bool own_y = gt_y ? ady < r.dzs : ady <= r.dzs;
-  r.ok = T[8] != 0.0f && r.v >= 0 && r.v < r.width && own_y;
+  r.ok = T(8) != 0.0f && r.v >= 0 && r.v < r.width && own_y;
   return r;
 }
 
@@ -182,9 +191,9 @@ __device__ __forceinline__ Row plane_row(const float* __restrict__ table, const 
 __device__ __forceinline__ void fuse_voxel(short* __restrict__ tsdf, short* __restrict__ weight,
                                            int* __restrict__ color,
                                            const short* __restrict__ frange,
-                                           const int* __restrict__ fcolor, const Sweep& w,
-                                           const Row& r, long long n, int xp, int gt_x, int F,
-                                           int stack_rows) {
+                                           const int* __restrict__ fcolor, const Lens& L,
+                                           const Sweep& w, const Row& r, long long n, int xp,
+                                           int gt_x, int F, int stack_rows) {
   // 128-lane chunks in x, as dy's 8-row strips
   const float dx =
       (static_cast<float>(xp & 127) * w.vsx - w.cx) + static_cast<float>(xp & ~127) * w.vsx;
@@ -196,7 +205,7 @@ __device__ __forceinline__ void fuse_voxel(short* __restrict__ tsdf, short* __re
   if (!own_x) return;
 
   const float r_obs =
-      static_cast<float>(kinfu::gather2d(frange, stack_rows, F, r.row_off + r.v, u));
+      static_cast<float>(kinfu::gather2d(frange, L.frange, stack_rows, F, r.row_off + r.v, u));
   if (!(r_obs > 0.0f)) return;
   const float r_vox = sqrtf(dx * dx + r.dy * r.dy + r.dz * r.dz) * 1000.0f;
   const float sdf = r_obs - r_vox;
@@ -205,17 +214,20 @@ __device__ __forceinline__ void fuse_voxel(short* __restrict__ tsdf, short* __re
   // float32 reciprocal instead of dividing
   const float tsdf_obs = fminf(sdf * (1.0f / w.trunc_mm), 1.0f);
 
-  const float t_old = static_cast<float>(tsdf[n]) * kinfu::kInvShort;
-  const float w_old = static_cast<float>(weight[n]);
+  short& t_ref = KINFU_AT(tsdf, L.tsdf, n);
+  short& w_ref = KINFU_AT(weight, L.weight, n);
+  const float t_old = static_cast<float>(t_ref) * kinfu::kInvShort;
+  const float w_old = static_cast<float>(w_ref);
   const float w_new = fminf(w_old + 1.0f, w.max_weight);
   const float t_new = (t_old * w_old + tsdf_obs) / (w_old + 1.0f);
   const float t_s = fminf(fmaxf(t_new * 32767.0f, -32767.0f), 32767.0f);
-  tsdf[n] = static_cast<short>(truncf(t_s));
-  weight[n] = static_cast<short>(w_new);
+  t_ref = static_cast<short>(truncf(t_s));
+  w_ref = static_cast<short>(w_new);
 
   if (sdf <= w.trunc_mm * 0.5f && sdf >= -w.trunc_mm * 0.5f) {
-    const int c_old = color[n];
-    const int c_obs = kinfu::gather2d(fcolor, stack_rows, F, r.row_off + r.v, u);
+    int& c_ref = KINFU_AT(color, L.color, n);
+    const int c_old = c_ref;
+    const int c_obs = kinfu::gather2d(fcolor, L.fcolor, stack_rows, F, r.row_off + r.v, u);
     int c_new = 0;
     for (int shift = 16; shift >= 0; shift -= 8) {
       const float o = static_cast<float>((c_old >> shift) & 0xFF);
@@ -223,7 +235,7 @@ __device__ __forceinline__ void fuse_voxel(short* __restrict__ tsdf, short* __re
       const float m = (w_new * o + p) / (w_new + 1.0f);
       c_new |= static_cast<int>(fminf(fmaxf(m, 0.0f), 255.0f)) << shift;
     }
-    color[n] = c_new;
+    c_ref = c_new;
   }
 }
 
@@ -236,8 +248,9 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
                       const int* __restrict__ fcolor, const float* __restrict__ prm,
                       const float* __restrict__ table, int nZ, int nY, int nX, int ax0,
                       int ax1, int flip, int gt_x, int gt_y, int F, int stack_rows,
-                      int n_slabs) {
-  if (prm[11] == 0.0f) return;  // face gate off: volume unchanged
+                      int n_slabs, Lens L) {
+  auto P = [&](int k) { return KINFU_AT(prm, L.prm, k); };
+  if (P(11) == 0.0f) return;  // face gate off: volume unchanged
   extern __shared__ int4 smem[];
   int4* s_rect = smem;  // per slab: first row, rows, first and last primed x
   unsigned* s_end = reinterpret_cast<unsigned*>(smem + n_slabs);  // rows of slabs 0..s
@@ -247,15 +260,15 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
   const int Zp = dims[ax0], Yp = dims[ax1];
   const bool x_sweeps = ax0 == 2;
   const int Xp = dims[3 - ax0 - ax1];
-  const Sweep w{prm[0], prm[1], prm[3], prm[4], prm[6], prm[8], prm[9]};
-  const Frustum fr = camera_frustum(prm);
+  const Sweep w{P(0), P(1), P(3), P(4), P(6), P(8), P(9)};
+  const Frustum fr = camera_frustum(prm, L.prm);
 
   // 1. each slab's rectangle: its plane's footprint, or the union of its
   // 32 planes' footprints
   if (!x_sweeps) {
     for (int s = threadIdx.x; s < n_slabs; s += kThreads) {
       const int zp = flip ? Zp - 1 - s : s;
-      const Footprint f = plane_footprint(table + zp * kTableCols, w, fr, Xp, Yp);
+      const Footprint f = plane_footprint(table, L.table, zp, w, fr, Xp, Yp);
       s_rect[s] = make_int4(f.y_lo, f.y_hi - f.y_lo + 1, f.x_lo, f.x_hi);
     }
   } else {
@@ -263,7 +276,7 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
       const int x = s * 32 + lane;
       Footprint f{0, -1, 0, -1};
       if (x < nX) {
-        f = plane_footprint(table + (flip ? Zp - 1 - x : x) * kTableCols, w, fr, Xp, Yp);
+        f = plane_footprint(table, L.table, flip ? Zp - 1 - x : x, w, fr, Xp, Yp);
       }
       const bool any = f.x_lo <= f.x_hi;
       int x_lo = any ? f.x_lo : Xp, x_hi = any ? f.x_hi : -1;
@@ -313,12 +326,12 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
     if (!x_sweeps) {
       // the warp's plane and row: 32 voxels along natural x = primed x a step
       const int zp = flip ? Zp - 1 - s : s;
-      const Row r = plane_row(table, w, zp, a, gt_y, F);
+      const Row r = plane_row(table, L.table, w, zp, a, gt_y, F);
       if (!r.ok) continue;
       const long long row = ax0 == 0 ? static_cast<long long>(s) * nY + a
                                      : static_cast<long long>(a) * nY + s;
       for (int x = (rect.z & ~31) + lane; x <= rect.w; x += 32) {
-        fuse_voxel(tsdf, weight, color, frange, fcolor, w, r, row * nX + x, x, gt_x, F,
+        fuse_voxel(tsdf, weight, color, frange, fcolor, L, w, r, row * nX + x, x, gt_x, F,
                    stack_rows);
       }
     } else {
@@ -326,15 +339,15 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
       // along primed x b = natural y, or (axes (2,1,0)) a = natural y and
       // b = natural z
       const int x = s * 32 + lane;
-      const Row r = plane_row(table, w, flip ? Zp - 1 - min(x, nX - 1) : min(x, nX - 1), a,
-                              gt_y, F);
+      const Row r = plane_row(table, L.table, w,
+                              flip ? Zp - 1 - min(x, nX - 1) : min(x, nX - 1), a, gt_y, F);
       const bool live = x < nX && r.ok;
       if (!__any_sync(kFull, live)) continue;
       for (int b = rect.z; b <= rect.w; ++b) {
         if (live) {
           const long long zy = ax1 == 0 ? static_cast<long long>(a) * nY + b
                                         : static_cast<long long>(b) * nY + a;
-          fuse_voxel(tsdf, weight, color, frange, fcolor, w, r, zy * nX + x, b, gt_x, F,
+          fuse_voxel(tsdf, weight, color, frange, fcolor, L, w, r, zy * nX + x, b, gt_x, F,
                      stack_rows);
         }
       }
@@ -344,11 +357,14 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
 
 }  // namespace
 
+// lens: the seven arrays' lengths in elements, in argument order (int64)
 extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const void* frange,
                                     const void* fcolor, const void* prm, const void* table,
                                     int nZ, int nY, int nX, int ax0, int ax1, int ax2,
                                     int flip, int gt_x, int gt_y, int F, int stack_rows,
-                                    void* stream) {
+                                    const void* lens, void* stream) {
+  const long long* n = static_cast<const long long*>(lens);
+  const Lens L{n[0], n[1], n[2], n[3], n[4], n[5], n[6]};
   const bool x_sweeps = ax0 == 2 && ((ax1 == 0 && ax2 == 1) || (ax1 == 1 && ax2 == 0));
   if (!(x_sweeps || (ax2 == 2 && ((ax0 == 0 && ax1 == 1) || (ax0 == 1 && ax1 == 0))))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -372,6 +388,6 @@ extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const
       static_cast<short*>(tsdf), static_cast<short*>(weight), static_cast<int*>(color),
       static_cast<const short*>(frange), static_cast<const int*>(fcolor),
       static_cast<const float*>(prm), static_cast<const float*>(table), nZ, nY, nX, ax0, ax1,
-      flip, gt_x, gt_y, F, stack_rows, n_slabs);
+      flip, gt_x, gt_y, F, stack_rows, n_slabs, L);
   return static_cast<int>(cudaGetLastError());
 }

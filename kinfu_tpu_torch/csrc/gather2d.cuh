@@ -7,29 +7,33 @@
 // Mosaic gather must fit in one vreg; on Hopper the gather is one load per
 // thread, with the indices clipped into the source as the TPU helper's
 // callers clip them (tilegather.py:251-259). Its plain version is PyTorch
-// indexing of the clipped indices.
+// indexing of the clipped indices. `n` is the length of `src` in elements,
+// which the checked build holds the load to (checked.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace kinfu {
 
-// src [rows, cols] row-major; (v, u) clipped into range.
+// src [rows, cols] row-major, n elements; (v, u) clipped into range.
 template <typename T>
-__device__ __forceinline__ T gather2d(const T* __restrict__ src, int rows, int cols,
-                                      int v, int u) {
+__device__ __forceinline__ T gather2d(const T* __restrict__ src, long long n, int rows,
+                                      int cols, int v, int u) {
   v = min(max(v, 0), rows - 1);
   u = min(max(u, 0), cols - 1);
-  return src[static_cast<long long>(v) * cols + u];
+  return KINFU_AT(src, n, static_cast<long long>(v) * cols + u);
 }
 
-// src [rows, cols, nch] row-major, channel k; (v, u) clipped into range.
+// src [rows, cols, nch] row-major, n elements, channel k; (v, u) clipped
+// into range.
 template <typename T>
-__device__ __forceinline__ T gather2d_ch(const T* __restrict__ src, int rows, int cols,
-                                         int nch, int v, int u, int k) {
+__device__ __forceinline__ T gather2d_ch(const T* __restrict__ src, long long n, int rows,
+                                         int cols, int nch, int v, int u, int k) {
   v = min(max(v, 0), rows - 1);
   u = min(max(u, 0), cols - 1);
-  return src[(static_cast<long long>(v) * cols + u) * nch + k];
+  return KINFU_AT(src, n, (static_cast<long long>(v) * cols + u) * nch + k);
 }
 
 // Round half to even (jnp.rint / torch.round), clamped to +-2^24 before the

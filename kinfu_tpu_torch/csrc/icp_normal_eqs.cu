@@ -69,6 +69,12 @@ constexpr int kTerms = 27;  // A's upper triangle (21) and b (6)
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 
+// The lengths in elements of the kernel's arrays, from the tensors the
+// wrapper passes (checked.cuh); 0 for an array a form does not take.
+struct Lens {
+  long long R, T, ok, out, cv, cn, pv, pn, partial_g, partial_n, ticket, A, b, ninl;
+};
+
 // Sums g[] and n over the block in a fixed order into res[] and *res_n.
 // Every thread of the block must call it.
 __device__ __forceinline__ void block_reduce(float (&g)[kTerms], int n, float* s_g, int* s_n, float* res,
@@ -105,7 +111,7 @@ __device__ __forceinline__ void block_reduce(float (&g)[kTerms], int n, float* s
 // iteration's terms (A's upper triangle and b, in the order of `res`), its
 // count and its start pose (r, t, ok_in), the state block `out`.
 __device__ void finish_iteration(const float* res, int count, const float (&r)[9],
-                                 const float (&t)[3], bool ok_in, float* out) {
+                                 const float (&t)[3], bool ok_in, float* out, long long n_out) {
   float a[6][6], x[6];
   int k = 0;
 #pragma unroll
@@ -231,13 +237,13 @@ __device__ void finish_iteration(const float* res, int count, const float (&r)[9
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const float nr = r[i * 3] * inc[0][j] + r[i * 3 + 1] * inc[1][j] + r[i * 3 + 2] * inc[2][j];
-      out[i * 3 + j] = keep ? nr : r[i * 3 + j];
+      KINFU_AT(out, n_out, i * 3 + j) = keep ? nr : r[i * 3 + j];
     }
     const float nt = (r[i * 3] * x[3] + r[i * 3 + 1] * x[4] + r[i * 3 + 2] * x[5]) + t[i];
-    out[9 + i] = keep ? nt : t[i];
+    KINFU_AT(out, n_out, 9 + i) = keep ? nt : t[i];
   }
-  out[12] = keep ? 1.0f : 0.0f;
-  reinterpret_cast<int*>(out)[13] = count;
+  KINFU_AT(out, n_out, 12) = keep ? 1.0f : 0.0f;
+  KINFU_AT(reinterpret_cast<int*>(out), n_out, 13) = count;
 }
 
 // R, T: the iteration's start pose (R row-major); in the finishing form
@@ -253,7 +259,7 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
                       float* partial_g, int* partial_n, unsigned int* ticket,
                       float* __restrict__ A, float* __restrict__ b, int* __restrict__ ninl,
                       float fx, float fy, float cx, float cy, float dist2, float sin2,
-                      int hc, int h, int w) {
+                      int hc, int h, int w, Lens L) {
   __shared__ float s_g[kMaxWarps * kTerms];
   __shared__ int s_n[kMaxWarps];
   __shared__ float res[kTerms];
@@ -262,9 +268,11 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
 
   float r[9], tt[3];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) r[k] = R != nullptr ? R[k] : (k % 4 == 0 ? 1.0f : 0.0f);
+  for (int k = 0; k < 9; ++k) {
+    r[k] = R != nullptr ? KINFU_AT(R, L.R, k) : (k % 4 == 0 ? 1.0f : 0.0f);
+  }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) tt[k] = T != nullptr ? T[k] : 0.0f;
+  for (int k = 0; k < 3; ++k) tt[k] = T != nullptr ? KINFU_AT(T, L.T, k) : 0.0f;
   const float t0 = tt[0], t1 = tt[1], t2 = tt[2];
 
   float g[kTerms];
@@ -276,8 +284,10 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < npix;
        p += stride) {
-    const float vx = cv[p * 3], vy = cv[p * 3 + 1], vz = cv[p * 3 + 2];
-    const float nx = cn[p * 3], ny = cn[p * 3 + 1], nz = cn[p * 3 + 2];
+    const float vx = KINFU_AT(cv, L.cv, p * 3), vy = KINFU_AT(cv, L.cv, p * 3 + 1),
+                vz = KINFU_AT(cv, L.cv, p * 3 + 2);
+    const float nx = KINFU_AT(cn, L.cn, p * 3), ny = KINFU_AT(cn, L.cn, p * 3 + 1),
+                nz = KINFU_AT(cn, L.cn, p * 3 + 2);
     const bool ncur_ok = nx != 0.0f || ny != 0.0f || nz != 0.0f;
 
     const float sx = r[0] * vx + r[1] * vy + r[2] * vz + t0;
@@ -290,12 +300,12 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
     const int v = kinfu::rint_clamped(sy / zs * fy + cy);
     if (!(zok && u >= 0 && u < w && v >= 0 && v < h && ncur_ok)) continue;
 
-    const float dx = kinfu::gather2d_ch(pv, h, w, 3, v, u, 0);
-    const float dy = kinfu::gather2d_ch(pv, h, w, 3, v, u, 1);
-    const float dz = kinfu::gather2d_ch(pv, h, w, 3, v, u, 2);
-    const float qx = kinfu::gather2d_ch(pn, h, w, 3, v, u, 0);
-    const float qy = kinfu::gather2d_ch(pn, h, w, 3, v, u, 1);
-    const float qz = kinfu::gather2d_ch(pn, h, w, 3, v, u, 2);
+    const float dx = kinfu::gather2d_ch(pv, L.pv, h, w, 3, v, u, 0);
+    const float dy = kinfu::gather2d_ch(pv, L.pv, h, w, 3, v, u, 1);
+    const float dz = kinfu::gather2d_ch(pv, L.pv, h, w, 3, v, u, 2);
+    const float qx = kinfu::gather2d_ch(pn, L.pn, h, w, 3, v, u, 0);
+    const float qy = kinfu::gather2d_ch(pn, L.pn, h, w, 3, v, u, 1);
+    const float qz = kinfu::gather2d_ch(pn, L.pn, h, w, 3, v, u, 2);
     if (!(qx != 0.0f || qy != 0.0f || qz != 0.0f)) continue;
 
     const float ex = sx - dx, ey = sy - dy, ez = sz - dz;
@@ -321,11 +331,13 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
   }
 
   block_reduce(g, n, s_g, s_n, res, &res_n);
-  if (threadIdx.x < kTerms) partial_g[blockIdx.x * kTerms + threadIdx.x] = res[threadIdx.x];
-  if (threadIdx.x == 0) partial_n[blockIdx.x] = res_n;
+  if (threadIdx.x < kTerms) {
+    KINFU_AT(partial_g, L.partial_g, blockIdx.x * kTerms + threadIdx.x) = res[threadIdx.x];
+  }
+  if (threadIdx.x == 0) KINFU_AT(partial_n, L.partial_n, blockIdx.x) = res_n;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(&KINFU_AT(ticket, L.ticket, 0), 1u) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
 
@@ -335,8 +347,10 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
   n = 0;
   for (int blk = threadIdx.x; blk < gridDim.x; blk += blockDim.x) {
 #pragma unroll
-    for (int k = 0; k < kTerms; ++k) g[k] += __ldcg(partial_g + blk * kTerms + k);
-    n += __ldcg(partial_n + blk);
+    for (int k = 0; k < kTerms; ++k) {
+      g[k] += __ldcg(&KINFU_AT(partial_g, L.partial_g, blk * kTerms + k));
+    }
+    n += __ldcg(&KINFU_AT(partial_n, L.partial_n, blk));
   }
   block_reduce(g, n, s_g, s_n, res, &res_n);
   if (threadIdx.x < kTerms) {
@@ -348,16 +362,19 @@ icp_normal_eqs_kernel(const float* R, const float* T, const float* ok_in, float*
     }
     const int c = a + k;
     if (c < 6) {
-      A[a * 6 + c] = res[threadIdx.x];
-      A[c * 6 + a] = res[threadIdx.x];
+      KINFU_AT(A, L.A, a * 6 + c) = res[threadIdx.x];
+      KINFU_AT(A, L.A, c * 6 + a) = res[threadIdx.x];
     } else {
-      b[a] = res[threadIdx.x];
+      KINFU_AT(b, L.b, a) = res[threadIdx.x];
     }
   }
   if (threadIdx.x == 0) {
-    *ninl = res_n;
-    *ticket = 0u;
-    if (kFinish) finish_iteration(res, res_n, r, tt, ok_in == nullptr || *ok_in != 0.0f, out);
+    KINFU_AT(ninl, L.ninl, 0) = res_n;
+    KINFU_AT(ticket, L.ticket, 0) = 0u;
+    if (kFinish) {
+      finish_iteration(res, res_n, r, tt, ok_in == nullptr || KINFU_AT(ok_in, L.ok, 0) != 0.0f,
+                       out, L.out);
+    }
   }
 }
 
@@ -368,22 +385,25 @@ int blocks_for(int hc, int w, int threads, int max_blocks) {
 
 }  // namespace
 
+// lens: the twelve arrays' lengths in elements, in argument order (int64)
 extern "C" int kinfu_icp_normal_eqs(const void* R, const void* T, const void* cv,
                                     const void* cn, const void* pv, const void* pn,
                                     void* partial_g, void* partial_n, void* ticket, void* A,
                                     void* b, void* ninl, float fx, float fy, float cx,
                                     float cy, float dist2, float sin2, int hc, int h, int w,
-                                    int nblocks, int threads, void* stream) {
+                                    int nblocks, int threads, const void* lens, void* stream) {
   if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads || nblocks < 1) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  const long long* n = static_cast<const long long*>(lens);
+  const Lens L{n[0], n[1], 0, 0, n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9], n[10], n[11]};
   icp_normal_eqs_kernel<false><<<nblocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(R), static_cast<const float*>(T), nullptr, nullptr,
       static_cast<const float*>(cv), static_cast<const float*>(cn),
       static_cast<const float*>(pv), static_cast<const float*>(pn),
       static_cast<float*>(partial_g), static_cast<int*>(partial_n),
       static_cast<unsigned int*>(ticket), static_cast<float*>(A), static_cast<float*>(b),
-      static_cast<int*>(ninl), fx, fy, cx, cy, dist2, sin2, hc, h, w);
+      static_cast<int*>(ninl), fx, fy, cx, cy, dist2, sin2, hc, h, w, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,11 +415,13 @@ extern "C" int kinfu_icp_normal_eqs(const void* R, const void* T, const void* cv
 // dims[3l .. 3l+2] (current rows, model rows, width). The first launch
 // starts from `start` (a state block; null: the identity and ok), every
 // launch writes `state`; A, b and ninl hold the last iteration's system.
+// lens: the arrays' lengths in elements (int64): the 4 * nlevels maps, then
+// start (0 when null), state, partial_g, partial_n, ticket, A, b and ninl.
 extern "C" int kinfu_icp_solve(int nlevels, const void* maps, const void* intr,
                                const void* dims, const void* iters, const void* start,
                                void* state, void* partial_g, void* partial_n, void* ticket,
                                void* A, void* b, void* ninl, float dist2, float sin2,
-                               int max_blocks, int threads, void* stream) {
+                               int max_blocks, int threads, const void* lens, void* stream) {
   if (threads % 32 != 0 || threads < 32 || threads > kMaxThreads || max_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
@@ -409,19 +431,27 @@ extern "C" int kinfu_icp_solve(int nlevels, const void* maps, const void* intr,
   const int* it = static_cast<const int*>(iters);
   const float* src = static_cast<const float*>(start);
   float* st = static_cast<float*>(state);
+  const long long* n = static_cast<const long long*>(lens);
+  const long long* tail = n + 4 * nlevels;  // start, state, partial_g, ..., ninl
+  long long n_src = tail[0];
   for (int l = 0; l < nlevels; ++l) {
     const int hc = d[3 * l], h = d[3 * l + 1], w = d[3 * l + 2];
     const int nblocks = blocks_for(hc, w, threads, max_blocks);
     for (int i = 0; i < it[l]; ++i) {
+      // R, T and ok of the start are views at offsets 0, 9 and 12 of its block
+      const Lens L{n_src,    n_src - 9,    n_src - 12,   tail[1], n[4 * l], n[4 * l + 1],
+                   n[4 * l + 2], n[4 * l + 3], tail[2], tail[3], tail[4], tail[5],
+                   tail[6],  tail[7]};
       icp_normal_eqs_kernel<true><<<nblocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
           src, src != nullptr ? src + 9 : nullptr, src != nullptr ? src + 12 : nullptr, st,
           m[4 * l], m[4 * l + 1], m[4 * l + 2], m[4 * l + 3], static_cast<float*>(partial_g),
           static_cast<int*>(partial_n), static_cast<unsigned int*>(ticket),
           static_cast<float*>(A), static_cast<float*>(b), static_cast<int*>(ninl),
-          in[4 * l], in[4 * l + 1], in[4 * l + 2], in[4 * l + 3], dist2, sin2, hc, h, w);
+          in[4 * l], in[4 * l + 1], in[4 * l + 2], in[4 * l + 3], dist2, sin2, hc, h, w, L);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       src = st;
+      n_src = tail[1];
     }
   }
   return static_cast<int>(cudaSuccess);

@@ -50,17 +50,25 @@ struct FaceFields {
   const float* n[kFaces];
 };
 
+// The lengths in elements of the kernel's arrays, from the tensors the
+// wrapper passes (checked.cuh).
+struct Lens {
+  long long t[kFaces], n[kFaces], prm, gates, vertex, normal, valid;
+};
+
 __global__ void resample_face_kernel(FaceFields faces, const float* __restrict__ prm,
                                      const unsigned char* __restrict__ gates,
                                      float* __restrict__ vertex, float* __restrict__ normal,
                                      unsigned char* __restrict__ valid, float fx, float fy,
                                      float cx, float cy, float focal, float centre, int h,
-                                     int w, int F) {
+                                     int w, int F, Lens L) {
   __shared__ float s_prm[kFaces * kCols];
   __shared__ int s_gate[kFaces];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < kFaces * kCols; i += blockDim.x * blockDim.y) s_prm[i] = prm[i];
-  if (tid < kFaces) s_gate[tid] = gates[tid] != 0;
+  for (int i = tid; i < kFaces * kCols; i += blockDim.x * blockDim.y) {
+    s_prm[i] = KINFU_AT(prm, L.prm, i);
+  }
+  if (tid < kFaces) s_gate[tid] = KINFU_AT(gates, L.gates, tid) != 0;
   __syncthreads();
 
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,7 +97,7 @@ __global__ void resample_face_kernel(FaceFields faces, const float* __restrict__
     const int fu = kinfu::rint_clamped(focal * d[0] / zs + centre);
     const int fv = kinfu::rint_clamped(focal * d[1] / zs + centre);
     if (!(fwd && fu >= 0 && fu < F && fv >= 0 && fv < F)) continue;
-    const float t = kinfu::gather2d(faces.t[f], F, F, fv, fu);
+    const float t = kinfu::gather2d(faces.t[f], L.t[f], F, F, fv, fu);
     if (!(t < kinfu::kInf)) continue;
 
     const float dzc = fmaxf(dz, 1e-9f);
@@ -99,7 +107,7 @@ __global__ void resample_face_kernel(FaceFields faces, const float* __restrict__
       const int axis = static_cast<int>(p[15 + i]);
       const float sign = p[18 + i];
       const float q = p[9 + i] + d[i] / dzc * t - p[12 + i];
-      const float n = sign * kinfu::gather2d_ch(faces.n[f], F, F, 3, fv, fu, i);
+      const float n = sign * kinfu::gather2d_ch(faces.n[f], L.n[f], F, F, 3, fv, fu, i);
       pv[axis] = sign * q;
       nv[axis] = n;
       nz = nz || fabsf(n) > 0.0f;
@@ -109,28 +117,40 @@ __global__ void resample_face_kernel(FaceFields faces, const float* __restrict__
   const long long o = static_cast<long long>(v) * w + u;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    vertex[o * 3 + k] = pv[k];
-    normal[o * 3 + k] = nv[k];
+    KINFU_AT(vertex, L.vertex, o * 3 + k) = pv[k];
+    KINFU_AT(normal, L.normal, o * 3 + k) = nv[k];
   }
-  valid[o] = ok_any ? 1 : 0;
+  KINFU_AT(valid, L.valid, o) = ok_any ? 1 : 0;
 }
 
 }  // namespace
 
+// lens: the arrays' lengths in elements (int64): the six t fields, the six
+// normal fields, then prm, gates, vertex, normal and valid
 extern "C" int kinfu_resample_face(const void* t_f, const void* n_f, const void* prm,
                                    const void* gates, void* vertex, void* normal, void* valid,
                                    float fx, float fy, float cx, float cy, float focal,
-                                   float centre, int h, int w, int F, void* stream) {
+                                   float centre, int h, int w, int F, const void* lens,
+                                   void* stream) {
+  const long long* n = static_cast<const long long*>(lens);
   FaceFields faces;
+  Lens L;
   for (int f = 0; f < kFaces; ++f) {
     faces.t[f] = static_cast<const float* const*>(t_f)[f];
     faces.n[f] = static_cast<const float* const*>(n_f)[f];
+    L.t[f] = n[f];
+    L.n[f] = n[kFaces + f];
   }
+  L.prm = n[2 * kFaces];
+  L.gates = n[2 * kFaces + 1];
+  L.vertex = n[2 * kFaces + 2];
+  L.normal = n[2 * kFaces + 3];
+  L.valid = n[2 * kFaces + 4];
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
   resample_face_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       faces, static_cast<const float*>(prm), static_cast<const unsigned char*>(gates),
       static_cast<float*>(vertex), static_cast<float*>(normal),
-      static_cast<unsigned char*>(valid), fx, fy, cx, cy, focal, centre, h, w, F);
+      static_cast<unsigned char*>(valid), fx, fy, cx, cy, focal, centre, h, w, F, L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -122,18 +122,25 @@ __device__ void axis_span(int Zl, int N, int lo, int hi, const Planes& pl, float
   }
 }
 
+// The lengths in elements of the kernel's arrays, from the tensors the
+// wrapper passes (checked.cuh).
+struct Lens {
+  long long tsdf, prm, hit, back;
+};
+
 __global__ void __launch_bounds__(256)
 sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
                   float* __restrict__ hit, float* __restrict__ back, int nZ, int nY, int nX,
                   int ax0, int ax1, int ax2, int flip, int F, int Zg, int Yg, int plane0,
-                  int row0) {
+                  int row0, Lens L) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const float ox = prm[0], oy = prm[1], oz = prm[2];
-  const float vsx = prm[3], vsy = prm[4], vsz = prm[5];
+  auto P = [&](int k) { return KINFU_AT(prm, L.prm, k); };
+  const float ox = P(0), oy = P(1), oz = P(2);
+  const float vsx = P(3), vsy = P(4), vsz = P(5);
   // the face focal is static in the JAX package, whose compiler multiplies
   // by its float32 reciprocal instead of dividing
-  const float inv_f = 1.0f / prm[6], c = prm[7], t_cover = prm[8], own_tan = prm[9];
+  const float inv_f = 1.0f / P(6), c = P(7), t_cover = P(8), own_tan = P(9);
 
   // any pixel of the block's 8-row tile and of its 128-column tile lies
   // inside the padded cone
@@ -154,7 +161,7 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
   if (i >= F || j >= F) return;
   float ht = kinfu::kInf, bt = kinfu::kInf;
 
-  if (prm[10] != 0.0f && s_owned) {
+  if (P(10) != 0.0f && s_owned) {
     const int dims[3] = {nZ, nY, nX};
     const long long strides[3] = {static_cast<long long>(nY) * nX, nX, 1};
     // local primed dims; the lanes (primed x) are never sharded
@@ -204,7 +211,8 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
           const float yv = (oy + dy * ts) * inv_vsy;
           const float xv = (ox + dx * ts) * inv_vsx;
           // rint_clamped's clamp is idle here: the indices lie in [1, N-2]
-          raw[k] = tsdf[base + z * s0 + __float2int_rn(yv) * s1 + __float2int_rn(xv) * s2];
+          raw[k] = KINFU_AT(tsdf, L.tsdf,
+                            base + z * s0 + __float2int_rn(yv) * s1 + __float2int_rn(xv) * s2);
         }
       }
 #pragma unroll
@@ -228,22 +236,26 @@ sweep_rays_kernel(const short* __restrict__ tsdf, const float* __restrict__ prm,
     // unresolved: the outward exit at e, whose sample is not valid
     if (!done && exits) bt = pl.t(e);
   }
-  hit[static_cast<long long>(i) * F + j] = ht;
-  back[static_cast<long long>(i) * F + j] = bt;
+  KINFU_AT(hit, L.hit, static_cast<long long>(i) * F + j) = ht;
+  KINFU_AT(back, L.back, static_cast<long long>(i) * F + j) = bt;
 }
 
 }  // namespace
 
+// lens: the four arrays' lengths in elements, in argument order (int64)
 extern "C" int kinfu_sweep_rays(const void* tsdf, const void* prm, void* hit, void* back,
                                 int nZ, int nY, int nX, int ax0, int ax1, int ax2, int flip,
-                                int F, int Zg, int Yg, int plane0, int row0, void* stream) {
+                                int F, int Zg, int Yg, int plane0, int row0, const void* lens,
+                                void* stream) {
   // a block must lie inside one 8x128 ownership tile
   if (F % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long* n = static_cast<const long long*>(lens);
+  const Lens L{n[0], n[1], n[2], n[3]};
   const dim3 block(32, 8);
   const dim3 grid(F / block.x, F / block.y);
   sweep_rays_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const short*>(tsdf), static_cast<const float*>(prm),
       static_cast<float*>(hit), static_cast<float*>(back), nZ, nY, nX, ax0, ax1, ax2, flip,
-      F, Zg, Yg, plane0, row0);
+      F, Zg, Yg, plane0, row0, L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -353,6 +353,7 @@ def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
         kernels.ptr(table),
         Z, Y, X, *frame.axes, int(frame.flip), int(frame.gt_x), int(frame.gt_y),
         face_range.shape[1], face_range.shape[0],
+        kernels.lengths(vol.tsdf, vol.weight, vol.color, face_range, face_color, prm, table),
     )
 
 

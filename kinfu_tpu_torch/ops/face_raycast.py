@@ -348,6 +348,7 @@ def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
         "kinfu_sweep_rays",
         kernels.ptr(tsdf), kernels.ptr(prm), kernels.ptr(hit), kernels.ptr(back),
         Z, Y, X, *frame.axes, int(frame.flip), F, *sh,
+        kernels.lengths(tsdf, prm, hit, back),
     )
     return hit, back
 
@@ -596,6 +597,7 @@ def resample_composite(t_f: Sequence[torch.Tensor], n_f: Sequence[torch.Tensor],
         kernels.ptr(vertex), kernels.ptr(normal), kernels.ptr(valid),
         float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy),
         float(spec.focal), float(spec.centre), h, w, F,
+        kernels.lengths(*t_f, *n_f, prm, gates, vertex, normal, valid),
     )
     return vertex, normal, valid
 

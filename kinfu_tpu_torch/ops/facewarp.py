@@ -324,6 +324,7 @@ def build_faces(depth_m: torch.Tensor, col_packed: torch.Tensor,
         "kinfu_build_faces",
         kernels.ptr(depth_m), kernels.ptr(col_packed), kernels.ptr(prm6),
         kernels.ptr(range_mm), kernels.ptr(color), kernels.ptr(r_max),
-        h, w, spec.size, spec.levels, key="build_face",
+        h, w, spec.size, spec.levels,
+        kernels.lengths(depth_m, col_packed, prm6, range_mm, color, r_max), key="build_face",
     )
     return range_mm, color, r_max

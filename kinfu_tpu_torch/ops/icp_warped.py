@@ -214,6 +214,8 @@ def icp_normal_eqs_warped(
         kernels.ptr(ninl),
         float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy), dist2, sin2,
         hc, h, w, _blocks(hc, w), _THREADS,
+        kernels.lengths(R, t, cur_vmap, cur_nmap, pre_vmap, pre_nmap, partial_g, partial_n,
+                        ticket, A, b, ninl),
     )
     return A, b, ninl
 
@@ -282,6 +284,7 @@ def icp_solve_warped(
         kernels.ptr(start) if start is not None else None, kernels.ptr(state),
         kernels.ptr(partial_g), kernels.ptr(partial_n), kernels.ptr(ticket),
         kernels.ptr(A), kernels.ptr(b), kernels.ptr(ninl), dist2, sin2, _MAX_BLOCKS,
-        _THREADS, key="icp_normal_eqs", count=sum(iters),
+        _THREADS, kernels.lengths(*maps, start, state, partial_g, partial_n, ticket, A, b, ninl),
+        key="icp_normal_eqs", count=sum(iters),
     )
     return state

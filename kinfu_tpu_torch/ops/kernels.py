@@ -12,6 +12,12 @@ in .gitignore), keyed by a hash of the sources and flags. `nvcc` is taken
 from PATH or from `$CUDA_HOME/bin` (default /usr/local/cuda); without it a
 launch raises.
 
+Every entry point takes, beside its pointers, the lengths of their arrays
+in elements (`lengths`). The checked build (`library(checked=True)`, flags
+`CHECKED_FLAGS`) traps on any global load or store outside them
+(csrc/checked.cuh); `tools/sanitize.py` runs it. A process loads one of the
+two builds, the normal one unless it asks first for the checked one.
+
 `LAUNCHES` counts, per kernel, the launches made by its wrapper. A run
 that sets the counts to 0 before it drives the main path and reads them
 after shows that the path went through the kernels.
@@ -25,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -37,6 +44,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
+#: added for the checked build: bounds checks, and source lines in the binary
+CHECKED_FLAGS = ("-DKINFU_CHECKED", "-lineinfo")
 
 #: launches per kernel name, added to by each wrapper where it launches
 LAUNCHES: collections.Counter = collections.Counter()
@@ -45,18 +54,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: C entry points: name -> argtypes (pointers and the stream are c_void_p,
-#: float arguments c_float)
+#: C entry points: name -> argtypes (pointers, the lengths array and the
+#: stream are c_void_p, float arguments c_float)
 _SIGNATURES = {
-    "kinfu_build_faces": [_P] * 6 + [_I] * 4 + [_P],
-    "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P],
-    "kinfu_sweep_rays": [_P] * 4 + [_I] * 12 + [_P],
-    "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P],
-    "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P],
-    "kinfu_icp_solve": [_I] + [_P] * 12 + [_F] * 2 + [_I] * 2 + [_P],
+    "kinfu_build_faces": [_P] * 6 + [_I] * 4 + [_P] * 2,
+    "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P] * 2,
+    "kinfu_sweep_rays": [_P] * 4 + [_I] * 12 + [_P] * 2,
+    "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P] * 2,
+    "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P] * 2,
+    "kinfu_icp_solve": [_I] + [_P] * 12 + [_F] * 2 + [_I] * 2 + [_P] * 2,
 }
 
+#: the loaded library and whether it is the checked build
 _lib = None
+_lib_checked = False
 
 
 def reset_launch_counts() -> None:
@@ -80,18 +91,20 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def build(out_dir: Path = BUILD_DIR, load_only: bool = False) -> Path:
-    """Compile every csrc/*.cu in parallel and link one shared library.
-    Returns its path; reuses an earlier build of the same sources, and with
-    `load_only` raises when there is none (a process that must not race
-    another on the build directory)."""
+def build(out_dir: Path = BUILD_DIR, load_only: bool = False, checked: bool = False) -> Path:
+    """Compile every csrc/*.cu in parallel and link one shared library
+    (with `checked`, the bounds-checked build). Returns its path; reuses an
+    earlier build of the same sources, and with `load_only` raises when
+    there is none (a process that must not race another on the build
+    directory)."""
     cu, headers = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + (CHECKED_FLAGS if checked else ())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for p in cu + headers:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     tag = digest.hexdigest()[:16]
-    lib_path = out_dir / f"libkinfu_kernels_{tag}.so"
+    lib_path = out_dir / f"libkinfu_kernels{'_checked' if checked else ''}_{tag}.so"
     if lib_path.is_file():
         return lib_path
     if load_only:
@@ -102,7 +115,7 @@ def build(out_dir: Path = BUILD_DIR, load_only: bool = False) -> Path:
     for src in cu:
         obj = out_dir / f"{src.stem}_{tag}.o"
         objs.append(obj)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -123,23 +136,36 @@ def build(out_dir: Path = BUILD_DIR, load_only: bool = False) -> Path:
     return lib_path
 
 
-def library(load_only: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library, built at first use unless `load_only`."""
-    global _lib
+def library(load_only: bool = False, checked: bool | None = None) -> ctypes.CDLL:
+    """The loaded kernel library, built at first use unless `load_only`.
+    `checked` picks the build at first use (default: the normal one); asking
+    later for the other build raises."""
+    global _lib, _lib_checked
     if _lib is None:
-        lib = ctypes.CDLL(str(build(load_only=load_only)))
+        lib = ctypes.CDLL(str(build(load_only=load_only, checked=bool(checked))))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+        _lib, _lib_checked = lib, bool(checked)
+    elif checked is not None and checked != _lib_checked:
+        raise RuntimeError(f"the {'checked' if _lib_checked else 'normal'} kernel build is "
+                           f"already loaded in this process")
     return _lib
 
 
 def timed_build() -> float:
-    """Build (or reuse) and load the library; returns the seconds taken."""
+    """Build (or reuse) the normal and the checked library, their nvcc
+    processes all at once, and load the normal one; returns the seconds
+    taken."""
     t0 = time.perf_counter()
-    library()
+    checked = threading.Thread(target=build, kwargs={"checked": True})
+    checked.start()
+    try:
+        library()
+    finally:
+        checked.join()
+    build(load_only=True, checked=True)  # raises if the checked build failed
     return time.perf_counter() - t0
 
 
@@ -175,6 +201,12 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def lengths(*tensors) -> ctypes.c_void_p:
+    """The lengths array an entry point takes: each tensor's numel (0 for
+    None, an array not passed), as int64 in argument order."""
+    return host_array(ctypes.c_longlong, [0 if t is None else t.numel() for t in tensors])
 
 
 def ptr_array(tensors) -> ctypes.c_void_p:

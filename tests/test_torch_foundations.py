@@ -331,6 +331,8 @@ def test_port_imports_no_jax():
         import kinfu_tpu_torch.data.icl_nuim, kinfu_tpu_torch.data.sensor
         import kinfu_tpu_torch.utils.metrics, kinfu_tpu_torch.utils.profiling
         import kinfu_tpu_torch.pipeline.streaming, kinfu_tpu_torch.volume.stream
+        import kinfu_tpu_torch.tools.sanitize, kinfu_tpu_torch.tools.trace_step
+        import kinfu_tpu_torch.tools.accuracy_run, kinfu_tpu_torch.tools.raycast_parity_probe
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
