@@ -57,6 +57,24 @@ Phases; any failure exits non-zero before the result line:
      ones, a frame launches K1 19 times, K2 and K5 once, K3 and K4 six
      times each; prints the frames where the cam2vol and vol2cam face sets
      differ;
+  4e. the march raycasts, which JAX runs outside Pallas and the port on
+     two kernels of its own, one thread a ray: M1 (csrc/march_rays.cu, the
+     step march) and M2 (csrc/march_hier.cu, the two-level march). M1, its
+     Z-slab form (an interior slab of phase 4d's four, halo-padded, with
+     per-ray k_start and t_end) and M2 against their plain twins on phase
+     4's final volume at frame 49's pose: events bit for bit, CUDA-event
+     times and bounds (the distinct voxels and cells and the operations
+     the rays need); then the orbit's 50 frames with
+     fused_mode="off" and raycast_mode "hier", then "step", and 20 frames
+     at 320^3 with "auto" (which must resolve to "hier": the gather
+     integrate and M2), each with no host sync a step (sync-debug "warn",
+     frames 2-5) and every step under "error": every frame after the
+     first tracks, the orbits' aligned ATE is <= 1 mm, and a frame
+     launches M2 or M1 once; then tests/test_pallas_integrate.py:249's
+     170-degree camera, one frame fused through the fused step's update
+     and raycast through M2 and through the warped path: a face other than
+     +z and +x is live and the march hits under 1% of the pixels that the
+     sweep misses;
   5. the same 50 frames through KinFuSession with its default device, numpy
      frames in, the counts set to 0 just before: every frame tracks, the
      aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
@@ -124,7 +142,12 @@ Phases; any failure exits non-zero before the result line:
      times; each leg's step of frames 10, 30 and 45 from phase 4's state of
      the frame before gives phase 4's pose within 1e-6 m and its ICP inlier
      count within 0.01%, and the gathered volume and model map of frame 30
-     agree with phase 4's (tests/test_distributed.py's tolerances); prints
+     agree with phase 4's (tests/test_distributed.py's tolerances); 10 more
+     non-fused Z-sharded frames with raycast_mode "step" march the slabs
+     (M1's Z-slab form, once a frame a rank, in place of K4 and K5; their
+     frame-30 model maps must equal the single-device "step" raycast of
+     the gathered volume on every pixel, and are printed against phase
+     4's warped ones); prints
      the free-running poses' gap to phase 4's (4c's), the collectives and
      bytes a frame and the host syncs of steps 2-4 under sync-debug
      "warn" (and, with --profile-table, rank 0's kernels under
@@ -145,10 +168,12 @@ Phases; any failure exits non-zero before the result line:
   7. the sanitizer pass (kinfu_tpu_torch/tools/sanitize.py) in child
      processes, in the bounds-checked build of the kernels that phase 2
      built beside the normal one (compute-sanitizer refuses this card's
-     machine): every form of K1-K5 and the shard forms at the main path's
+     machine): every form of K1-K5, the shard forms, M1 (both forms) and
+     M2 at the main path's
      shapes and at test scale must run without a fault and launch each
      kernel; then K5 with a vertex buffer one row short must trap;
-  8. print one JSON line describing the kernels and the shard forms (with
+  8. print one JSON line describing the kernels, the shard forms and M1
+     and M2 (with
      each kernel's launches on every path this script drives, the sharded
      ones summed over the ranks), then the card, then the result line.
 
@@ -847,18 +872,20 @@ def check_icp_finish(cvs, cns, state, params, intr, device):
     return timed
 
 
-def count_syncs(frames, params, intr, device, streaming: bool = False) -> float:
-    """Host synchronisations a step makes, per frame: kinfu_step (with
-    `streaming`, streaming_step) over `frames` from a fresh state under
-    torch.cuda's sync-debug mode "warn", counting its warnings (after two
-    frames that build the step's constant caches). The mode sees the
-    synchronising CUDA calls PyTorch makes (copies between host and device,
-    reads of a device value); PyTorch calls it a prototype that may miss
-    some."""
+def step_syncs(frames, params, intr, device, streaming: bool = False) -> dict:
+    """Host synchronisations, kernel launches and CUDA-event ms of a step,
+    per frame: kinfu_step (with `streaming`, streaming_step) over `frames`
+    from a fresh state under torch.cuda's sync-debug mode "warn", counting
+    its warnings (after two frames that build the step's constant caches).
+    The mode sees the synchronising CUDA calls PyTorch makes (copies
+    between host and device, reads of a device value); PyTorch calls it a
+    prototype that may miss some. Returns {"syncs", "launches" (per kernel),
+    "ms" (median), "frames"}; the times include the mode's warnings."""
     import warnings
 
     import torch
 
+    from kinfu_tpu_torch.ops import kernels
     from kinfu_tpu_torch.pipeline.kinfu import init_state, kinfu_step
 
     if streaming:
@@ -871,21 +898,31 @@ def count_syncs(frames, params, intr, device, streaming: bool = False) -> float:
     for d, c in dev[:2]:
         state, _ = kinfu_step(state, d, c, params, intr)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             for d, c in dev[2:]:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
                 state, _ = kinfu_step(state, d, c, params, intr)
+                b.record()
+                times.append((a, b))
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    n = len(dev) - 2
     where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
                                 if "called a synchronizing CUDA operation" in str(w.message))
     if where:
-        print(f"    host syncs in {len(dev) - 2} steps, by the line that made them: "
+        print(f"    host syncs in {n} steps, by the line that made them: "
               f"{dict(where)}", flush=True)
-    return sum(where.values()) / (len(dev) - 2)
+    return {"syncs": sum(where.values()) / n,
+            "launches": {k: v / n for k, v in sorted(kernels.LAUNCHES.items())},
+            "ms": float(np.median([a.elapsed_time(b) for a, b in times])), "frames": n}
 
 
 def run_orbit(frames, params, intr, device, no_sync: bool = False, origins=None):
@@ -1783,7 +1820,7 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
     if not a_oks[1:].all():
         _fail(f"corridor, fixed volume: tracking failed at frames {np.nonzero(~a_oks[1:])[0] + 1}")
 
-    syncs = count_syncs(frames[:6], params, intr, device, streaming=True)
+    syncs = step_syncs(frames[:6], params, intr, device, streaming=True)["syncs"]
     origins = []
     poses, oks, inliers, frame_ms, state, launches = run_orbit(
         frames[:n], params, intr, device, no_sync=True, origins=origins)
@@ -1918,6 +1955,285 @@ def profile_shift(params, device, n: int = 4) -> None:
     print(f"    shift_volume, one call on {tuple(vol.tsdf.shape)}: device {prof.busy_ms:.4f} ms "
           f"in {prof.count:.0f} launches (bound {bound(2 * nbytes(*vol), 0)[0]:.4f} ms, bytes)",
           flush=True)
+
+
+# ---- phase 4e: the march raycasts (M1, M2) --------------------------------
+
+#: the kernels the port adds for JAX loops outside Pallas: (launch-count key,
+#: name, source, the JAX function whose lax.while_loop it runs)
+MARCH_KERNELS = (
+    ("march_rays", "M1 march_rays", "kinfu_tpu_torch/csrc/march_rays.cu",
+     "kinfu_tpu/volume/raycast.py:122"),
+    ("march_hier", "M2 march_hier", "kinfu_tpu_torch/csrc/march_hier.cu",
+     "kinfu_tpu/volume/raycast.py:299"),
+)
+#: float32 operations of the march kernels, counted from their sources as
+#: written (an arithmetic operation, a comparison, a min or max, a rint or
+#: floor, a conversion to or from float32: one each; the integer index
+#: arithmetic is not counted, having no rate in the table): per ray before
+#: the loop, per loop iteration of a live ray (M2: in fine and in coarse
+#: mode), per iteration whose two samples are valid (the four comparisons
+#: of the crossing rules), per front (the refinement) and per back event
+MARCH_OPS = {"march_rays": dict(ray=30, fine=30, coarse=0, test=4, front=10, back=3),
+             "march_hier": dict(ray=14, fine=26, coarse=52, test=4, front=10, back=3)}
+#: the untileable leg: a volume side that is not a multiple of 128, its frames
+MARCH_DIM = 320
+MARCH_DIM_FRAMES = 20
+#: the slab form's setup: phase 4d's ranks, its interior slab
+MARCH_SLAB = 1
+
+
+def _march_inputs(params, intr, T, device):
+    """(org, dirs, t_start, t_end, step, inv_vs) of the raycast dispatcher
+    at camera pose T (world from camera, the orbit's frame)."""
+    import torch
+
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.volume import raycast as rc
+
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
+    return rc.march_inputs(compose(inverse(volp), cam), intr, params)
+
+
+def _march_pair(key: str, kernel, plain, work, inputs, smi: str, tag: str):
+    """One kernel call against its plain twin on the same inputs (the
+    float32 ray arrays `inputs`): the events bit for bit, CUDA-event times
+    (the kernel's median of 10; the twin's one call, the compared one: it
+    reads the device once a loop step, ~10^4 times at 512^3 for "hier"),
+    and the bound of what this run's rays need (`work`, the twin's counts):
+    each distinct voxel they read at 2 bytes and occupancy cell at 1, each
+    ray input read and output written once, and the MARCH_OPS operations.
+    Returns (max abs err, ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    got = kernel()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = plain()
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    equal = all(torch.equal(x, y) for x, y in zip(got, want))
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    counts = [int(c) for c in work()]
+    if key == "march_rays":
+        (voxels, fine, tests), cells, coarse = counts, 0, 0
+    else:
+        voxels, cells, fine, tests, coarse = counts
+    n_rays = got.hit_t.numel()
+    fronts = int((got.hit_t < 1e30).sum())
+    backs = int((got.back_t < 1e30).sum())
+    o = MARCH_OPS[key]
+    ops = (o["ray"] * n_rays + o["fine"] * fine + o["coarse"] * coarse + o["test"] * tests
+           + o["front"] * fronts + o["back"] * backs)
+    nb = 2 * voxels + cells + nbytes(*inputs, got.hit_t, got.back_t)
+    b_ms, b_by = bound(nb, ops)
+    hits = int(((got.hit_t < got.back_t) & (got.hit_t < 1e30)).sum())
+    ms = cuda_ms(kernel)
+    iters = f"{fine} fine and {coarse} coarse" if coarse else f"{fine}"
+    print(f"    {tag}: events bit for bit: {equal} (max abs err {err:.3g}); {hits} hits of "
+          f"{n_rays} rays; {iters} loop iterations ({(fine + coarse) / n_rays:.1f} a ray), "
+          f"{tests} with both samples valid, {fronts} fronts, {backs} backs; {voxels} distinct "
+          f"voxels{f' and {cells} occupancy cells' if coarse else ''} read; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nb} bytes, {ops} "
+          f"operations)  [{smi}]", flush=True)
+    if not equal:
+        _fail(f"{tag}: the kernel's events differ from its plain twin's")
+    return err, ms, plain_ms, b_ms, b_by
+
+
+def check_marches(tsdf, T, params, intr, device, smi: str) -> dict:
+    """Phase 4e (a) and (d): M1 against `march` and M2 against `march_hier`,
+    both twins plain on the card, on `tsdf` (phase 4's final volume) from
+    the camera pose T; then M1's Z-slab form against `march` on the
+    interior slab MARCH_SLAB of phase 4d's SHARD_RANKS, padded with
+    `HALO` rows, with its per-ray k_start and t_end (`_local_t_interval`).
+    Returns {key: (err, ms, plain ms, bound ms, bound by)} with "march_slab"."""
+    from kinfu_tpu_torch.parallel.sharded import HALO, _local_t_interval
+    from kinfu_tpu_torch.tools.sanitize import padded_slab
+    from kinfu_tpu_torch.volume import raycast as rc
+
+    org, dirs, ts, te, step, inv_vs = _march_inputs(params, intr, T, device)
+    dims = tuple(tsdf.shape)
+    vs = params.voxel_size
+    bnd = rc.march_steps_bound(dims, vs, step)
+    rays = (org, dirs, ts, te, inv_vs)
+    m1 = (tsdf, dims, 0, *rays[:4], step, inv_vs)
+    res = {"march_rays": _march_pair(
+        "march_rays", lambda: rc.march_rays(*m1, max_steps=bnd),
+        lambda: rc.march(*m1, max_steps=bnd), lambda: rc.march_work(*m1, max_steps=bnd),
+        rays, smi, "M1 march_rays, full volume")}
+    occ = rc.build_occupancy(tsdf)
+    m2 = (tsdf, occ, *rays[:4], step, inv_vs)
+    res["march_hier"] = _march_pair(
+        "march_hier", lambda: rc.march_hier_rays(*m2), lambda: rc.march_hier(*m2),
+        lambda: rc.march_hier_work(*m2), rays, smi, "M2 march_hier")
+    Zl = dims[0] // SHARD_RANKS
+    z0 = MARCH_SLAB * Zl
+    padded = padded_slab(tsdf, 0, MARCH_SLAB, SHARD_RANKS, HALO)
+    vsz = vs[2]
+    z_lo = float(np.float32(z0) * np.float32(vsz))
+    z_hi = float(np.float32(z0 + Zl) * np.float32(vsz))
+    k_lo, t_hi = _local_t_interval(org[2], dirs[..., 2], z_lo, z_hi, ts, te, step)
+    slab = (padded, dims, z0 - HALO, org, dirs, ts, t_hi, step, inv_vs)
+    kw = dict(k_start=k_lo, max_steps=bnd)
+    res["march_slab"] = _march_pair(
+        "march_rays", lambda: rc.march_rays(*slab, **kw), lambda: rc.march(*slab, **kw),
+        lambda: rc.march_work(*slab, **kw), (org, dirs, ts, t_hi, k_lo, inv_vs), smi,
+        f"M1 march_rays, Z-slab form (slab {MARCH_SLAB} of {SHARD_RANKS}, "
+        f"{tuple(padded.shape)} with {HALO} halo rows a side)")
+    return res
+
+
+def run_march_leg(frames, gt, params, intr, device, smi: str, want: dict, tag: str,
+                  fused_poses=None) -> dict:
+    """One leg of phase 4e: the host syncs, launches and ms a frame of
+    frames 2-5 under sync-debug "warn" (`step_syncs`), then `frames`
+    through kinfu_step with each step under sync-debug "error". Fails
+    unless there are no syncs, every frame after the first tracks and the
+    launches a frame are `want`. Returns the leg's record."""
+    from kinfu_tpu_torch.eval.ate import ate_rmse
+
+    n = len(frames)
+    costs = step_syncs(frames[:6], params, intr, device)
+    print(f"  [{tag}] fused_mode={params.fused_mode!r}, raycast_mode={params.raycast_mode!r}, "
+          f"{params.volume_dims[0]}^3: host syncs a step {costs['syncs']:g}, "
+          f"{costs['ms']:.3f} ms/frame and launches a frame {costs['launches']} (frames 2-5, "
+          f"sync-debug \"warn\", CUDA events) on {smi}", flush=True)
+    poses, oks, inliers, frame_ms, state, launches = run_orbit(frames, params, intr, device,
+                                                               no_sync=True)
+    del state
+    _empty_cache(device)
+    ate = ate_rmse(list(poses), gt[:n])
+    ms_frame = float(np.median(frame_ms[2:])) if frame_ms is not None else float("nan")
+    gap = (f"; max |pose - phase 4 fused pose| {float(np.abs(poses - fused_poses[:n]).max()):.3g}"
+           if fused_poses is not None else "")
+    print(f"    {n} frames under sync-debug \"error\": tracked {int(oks[1:].sum())}/{n - 1} "
+          f"after bootstrap; aligned ATE {ate * 1e3:.4f} mm{gap}; {ms_frame:.3f} ms/frame "
+          f"(median of frames 2-{n - 1}, CUDA events); launches a frame "
+          f"{ {k: v / n for k, v in sorted(launches.items())} }", flush=True)
+    if costs["syncs"]:
+        _fail(f"{tag}: the step synchronised the host {costs['syncs']:g} times a frame")
+    if not oks[1:].all() or not np.isfinite(poses).all():
+        _fail(f"{tag}: tracking failed at frames {np.nonzero(~oks[1:])[0] + 1}")
+    check_counts(launches, {k: v * n for k, v in want.items()}, tag)
+    return {"launches": launches, "ate": ate, "ms": ms_frame, "syncs": costs["syncs"],
+            "warn_ms": costs["ms"], "warn_launches": costs["launches"]}
+
+
+def _roty(deg: float, t=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """tests/test_pallas_integrate.py::_roty: a rotation about y, then t."""
+    a = np.radians(deg)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    T[:3, 3] = t
+    return T
+
+
+def run_backward(params, intr, device, smi: str) -> dict:
+    """Phase 4e (e): tests/test_pallas_integrate.py:249's camera (170
+    degrees about y, 3.3 m along z, inside the volume looking back along
+    -z at a sphere and a plane), at this width: one frame fused through the
+    fused step's update, then raycast through M2 ("hier") and through the
+    warped path. Fails unless the march hits under PARITY_MAX of the pixels
+    that the sweep misses and a face other than +z and +x is live."""
+    import torch
+
+    from kinfu_tpu_torch.data.synthetic import SyntheticScene, plane, sphere
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.ops.face_integrate import faces_needed
+    from kinfu_tpu_torch.ops.face_raycast import faces_needed_cam2vol, raycast_warped
+    from kinfu_tpu_torch.ops.facewarp import face_frames
+    from kinfu_tpu_torch.ops.fused_step import fused_update
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.tools.raycast_parity_probe import parity_stats
+    from kinfu_tpu_torch.volume.raycast import raycast
+    from kinfu_tpu_torch.volume.tsdf import create_volume
+
+    scene = SyntheticScene(primitives=[sphere((0.25, 0.0, 1.5), 0.5),
+                                       plane(np.array([0.0, 0.0, 0.7]),
+                                             np.array([0.0, 0.0, 1.0]))])
+    T = _roty(170.0, t=(0.0, 0.0, 3.3))
+    depth, color = scene.render_frame(T, intr)
+    depth_m = torch.as_tensor(depth * np.float32(params.depth_scale), device=device)
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    cam = pose_from_matrix(torch.as_tensor(T, device=device))
+    vol2cam, cam2vol = compose(inverse(cam), volp), compose(inverse(volp), cam)
+    vol = create_volume(params.volume_dims, device=device)
+    good = torch.ones((), dtype=torch.bool, device=device)
+    vol, _, _ = fused_update(vol, depth_m, torch.as_tensor(color, device=device), vol2cam,
+                             cam2vol, intr, params, good)
+    kernels.reset_launch_counts()
+    march = raycast(vol, cam2vol, intr, params.replace(raycast_mode="hier"))
+    m_launches = kernels.LAUNCHES.get("march_hier", 0)
+    warped = raycast_warped(vol, cam2vol, intr, params)
+    names = [f.name for f in face_frames()]
+    fuse_on = [nm for nm, g in zip(names, faces_needed(vol2cam, intr).tolist()) if g]
+    cast_on = [nm for nm, g in zip(names, faces_needed_cam2vol(cam2vol, intr).tolist()) if g]
+    stats = parity_stats(*(a.cpu().numpy() for a in warped), *(a.cpu().numpy() for a in march))
+    weighted = int((vol.weight > 0).sum())
+    print(f"  [4e] 170-degree camera (tests/test_pallas_integrate.py:249) at "
+          f"{intr.width}x{intr.height} / {params.volume_dims[0]}^3: {weighted} voxels fused; "
+          f"faces gated by the fusion {fuse_on}, by the raycast {cast_on}; M2 launched "
+          f"{m_launches} time(s); the warped raycast against M2: {json.dumps(stats)}  [{smi}]",
+          flush=True)
+    del vol
+    _empty_cache(device)
+    if m_launches != 1:
+        _fail(f"the 170-degree raycast launched M2 {m_launches} times, not once")
+    if not set(fuse_on) - {"+z", "+x"} or not set(cast_on) - {"+z", "+x"}:
+        _fail(f"the 170-degree camera engaged only {fuse_on} / {cast_on}")
+    if not stats["march_hits_sweep_misses"] < PARITY_MAX:
+        _fail(f"170-degree camera: the march hits {stats['march_hits_sweep_misses']:.4%} of "
+              f"the pixels that the sweep misses, not under {PARITY_MAX:.0%}")
+    return stats
+
+
+def run_marches(frames, gt, params, intr, device, tsdf, T_last, fused_poses, smi: str):
+    """Phase 4e: the march raycasts on the card. (a) M1 and M2 against
+    their plain twins on phase 4's final volume at its last pose, and (d)
+    M1's Z-slab form (`check_marches`); (b) the orbit non-fused with
+    raycast_mode "hier" and then "step" (`run_march_leg`: no host sync,
+    every frame tracked, the aligned ATE <= ATE_MAX, one M2 or M1 launch a
+    frame); (c) MARCH_DIM_FRAMES frames at MARCH_DIM^3, which "auto"
+    resolves to "hier" (the gather integrate, M2); (e) the 170-degree
+    camera (`run_backward`). Returns (kernel results, {path: launches},
+    {leg: record})."""
+    import dataclasses
+
+    from kinfu_tpu_torch.volume.raycast import resolve_raycast_mode
+
+    t0 = time.perf_counter()
+    print(f"[4e] the march raycasts: M1 and M2 against their plain twins on phase 4's final "
+          f"volume at frame {len(fused_poses) - 1}'s pose", flush=True)
+    res = check_marches(tsdf, T_last, params, intr, device, smi)
+    n = len(frames)
+    base = {"icp_normal_eqs": 19, "build_face": 1, "face_integrate": 6, "sweep_rays": 0,
+            "resample_face": 0}
+    legs = {}
+    for mode, key, other in (("hier", "march_hier", "march_rays"),
+                             ("step", "march_rays", "march_hier")):
+        p = params.replace(fused_mode="off", raycast_mode=mode)
+        legs[f"march_{mode}"] = run_march_leg(frames, gt, p, intr, device, smi,
+                                              {**base, key: 1, other: 0}, f"4e {mode}",
+                                              fused_poses)
+        if legs[f"march_{mode}"]["ate"] > ATE_MAX:
+            _fail(f"4e {mode}: aligned ATE {legs[f'march_{mode}']['ate'] * 1e3:.4f} mm > "
+                  f"{ATE_MAX * 1e3} mm")
+    p = dataclasses.replace(params, volume_dims=(MARCH_DIM,) * 3, trunc_dist=None)
+    mode = resolve_raycast_mode(p, p.volume_dims, device)
+    if mode != "hier":
+        _fail(f"raycast_mode 'auto' resolves to {mode!r} at {MARCH_DIM}^3 on the card, not 'hier'")
+    legs[f"march_{MARCH_DIM}"] = run_march_leg(
+        frames[:MARCH_DIM_FRAMES], gt, p, intr, device, smi,
+        {"icp_normal_eqs": 19, "march_hier": 1, "march_rays": 0, "build_face": 0,
+         "face_integrate": 0, "sweep_rays": 0, "resample_face": 0},
+        f"4e auto at {MARCH_DIM}^3 (resolved to {mode!r}, the gather integrate)")
+    legs["backward"] = run_backward(params, intr, device, smi)
+    print(f"  phase 4e took {time.perf_counter() - t0:.1f} s", flush=True)
+    paths = {k: v["launches"] for k, v in legs.items() if k != "backward"}
+    return res, paths, legs
 
 
 # ---- phase 4d: the sharded step on the one card ---------------------------
@@ -2218,6 +2534,27 @@ def _volume_gap(full: dict, ref: str) -> dict:
                 hits=int(both.sum()), weighted=int((full["weight"] > 0).sum()))
 
 
+def _march_map_gap(full: dict, params, intr, device) -> dict:
+    """A gathered state (`unshard_state`) of the sharded march against the
+    single-device march raycast ("step": M1 on the whole volume on the
+    card) of its own volume at its own pose: the pixels whose level-0
+    model vertex or normal differs, the largest difference, and the pixels
+    with a vertex. The composite is exact, so 0 and 0 are expected."""
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse
+    from kinfu_tpu_torch.pipeline.kinfu import _volume_pose
+    from kinfu_tpu_torch.pipeline.state import state_from_numpy
+    from kinfu_tpu_torch.volume.raycast import raycast
+
+    state = state_from_numpy(full, device=device)
+    cam2vol = compose(inverse(_volume_pose(params, device)), state.pose)
+    rv, rn = raycast(state.vol, cam2vol, intr, params)
+    dv = np.abs(rv.cpu().numpy() - full["model_vmaps"][0]).max(axis=-1)
+    dn = np.abs(rn.cpu().numpy() - full["model_nmaps"][0]).max(axis=-1)
+    del state
+    return dict(differ=int(((dv != 0) | (dn != 0)).sum()), max=float(max(dv.max(), dn.max())),
+                hits=int((np.abs(full["model_vmaps"][0][..., 2]) > 0).sum()))
+
+
 def _load_state(prefix: str) -> dict:
     """The fields of `state_to_numpy` saved at `prefix` by `save_states`,
     the volume memory-mapped (a rank reads its slab only)."""
@@ -2238,8 +2575,9 @@ def _shard_rank(mesh, job):
     thread and from gloo's (which print to stderr). Then, for each frame k
     of `job["forced"]`, one sharded step of frame k from phase 4's state
     after frame k - 1 (`shard_state`), gathering the volume after the
-    middle one (`unshard_state`), which rank 0 holds against phase 4's.
-    Returns {path: record}."""
+    middle one (`unshard_state`), which rank 0 holds against phase 4's and,
+    on the march leg, against the single-device march of itself
+    (`_march_map_gap`). Returns {path: record}."""
     import dataclasses
     import os
     import tempfile
@@ -2325,6 +2663,8 @@ def _shard_rank(mesh, job):
                 full = unshard_state(state, m)
                 if m.rank == 0:
                     rec["forced_volume"] = _volume_gap(full, f"{job['states']}{k}")
+                    if params.raycast_mode == "step":
+                        rec["march_gap"] = _march_map_gap(full, params, intr, m.device)
                 del full
             del state
         del frames
@@ -2413,17 +2753,23 @@ def run_sharded(frames, gt, params, intr, device, fused_poses, fused_inliers, nf
     processes that load the kernels phase 2 built) run the orbit's frames
     through the sharded step: all of them Z-sharded and fused, all of them
     Y-sharded and fused (the +-x faces, live on frames 19-49, sweep in the
-    (2, 1, 0) frame), and SHARD_NONFUSED_FRAMES Z-sharded with
-    fused_mode="off"; then each leg steps each frame of SHARD_FORCED from
-    phase 4's state. Fails unless every rank gives the same poses, every
-    frame after the first tracks, the aligned ATE is <= 1 mm, each rank
-    launches K1 19 times a frame, K2 and K5 once, K3 and K4 six times (a
-    launch a face, each reading its gate), and each step from phase 4's
+    (2, 1, 0) frame), SHARD_NONFUSED_FRAMES Z-sharded with
+    fused_mode="off", and as many with fused_mode="off" and
+    raycast_mode="step" (the march raycast over the slabs: M1's Z-slab
+    form); then each leg steps each frame of SHARD_FORCED from phase 4's
+    state. Fails unless every rank gives the same poses, every frame after
+    the first tracks, the aligned ATE is <= 1 mm, each rank launches K1 19
+    times a frame, K2 and K5 once, K3 and K4 six times (a launch a face,
+    each reading its gate; on the march leg M1 once in place of K4 and
+    K5), and each step from phase 4's
     state gives phase 4's pose within SHARD_POSE_TOL and its ICP inlier
     count within SHARD_INLIER_SHARE (the non-fused step tracks as the fused
     one does) and, at the middle frame, its volume and model map within
-    tests/test_distributed.py's tolerances. Prints the free-running legs'
-    pose gap against phase 4's (4c's), ungated, over all their frames and
+    tests/test_distributed.py's tolerances (the march leg's model map,
+    raycast otherwise than phase 4's, is printed there, and held instead
+    to the single-device march of the gathered volume, which it must equal
+    on every pixel). Prints the
+    free-running legs' pose gap against phase 4's (4c's), ungated, over all their frames and
     over the first GATHER_FRAMES beside `gather_gap`, the gap of phase 4's
     gather-ICP leg over those frames. With `profile`, rank 0
     also runs Z-sharded steps under torch.profiler. Returns {path:
@@ -2438,11 +2784,14 @@ def run_sharded(frames, gt, params, intr, device, fused_poses, fused_inliers, nf
     keep = {SHARD_FORCED[1], *(k - 1 for k in SHARD_FORCED)}
     states = save_states(frames, params, intr, device, keep)
     legs = [("sharded_z", 0, params, n), ("sharded_y", 1, params, n),
-            ("sharded_nonfused", 0, params.replace(fused_mode="off"), SHARD_NONFUSED_FRAMES)]
+            ("sharded_nonfused", 0, params.replace(fused_mode="off"), SHARD_NONFUSED_FRAMES),
+            ("sharded_march", 0, params.replace(fused_mode="off", raycast_mode="step"),
+             SHARD_NONFUSED_FRAMES)]
     print(f"  phase 4's states after frames {sorted(keep)} saved in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"  {SHARD_RANKS} ranks on the one card (gloo): the orbit's {n} frames Z-sharded "
-          f"and Y-sharded (fused), {SHARD_NONFUSED_FRAMES} frames Z-sharded non-fused; each leg "
+          f"and Y-sharded (fused), {SHARD_NONFUSED_FRAMES} frames Z-sharded non-fused with the "
+          f"warped raycast and as many with the march (raycast_mode 'step'); each leg "
           f"then steps frames {SHARD_FORCED} from phase 4's state", flush=True)
     t0 = time.perf_counter()
     ranks = spawn(_shard_rank, SHARD_RANKS, dict(frames=str(SHARD_OUT / "frames.npz"), intr=intr,
@@ -2508,19 +2857,31 @@ def run_sharded(frames, gt, params, intr, device, fused_poses, fused_inliers, nf
                   f"phase 4's pose")
         if any(abs(a - b) > SHARD_INLIER_SHARE * b for a, b in inl.values()):
             _fail(f"{path}: a step from phase 4's state counts other ICP inliers: {inl}")
+        march = p.raycast_mode == "step"
+        raycast = ({"march_rays": m, "sweep_rays": 0, "resample_face": 0} if march
+                   else {"resample_face": m, "sweep_rays": 6 * m})
         for r, rec in enumerate(recs):
             check_counts(rec["launches"], {"icp_normal_eqs": 19 * m, "build_face": m,
-                                           "resample_face": m, "face_integrate": 6 * m,
-                                           "sweep_rays": 6 * m}, f"{path}, rank {r}")
+                                           "face_integrate": 6 * m, **raycast},
+                         f"{path}, rank {r}")
         v = recs[0]["forced_volume"]
         print(f"    the volume of frame {SHARD_FORCED[1]} stepped from phase 4's state against "
               f"phase 4's: TSDF beyond {SHARD_TSDF_TOL} on {v['tsdf_share']:.4%} of voxels, "
               f"weights differ on {v['weight_share']:.4%} ({v['weighted']} weighted voxels); "
-              f"model map 99th percentile gap {v['vmap_p99']:.3g} m over {v['hits']} pixels",
+              f"model map 99th percentile gap {v['vmap_p99']:.3g} m over {v['hits']} pixels"
+              f"{' (the march against the warped raycast: printed, not gated)' if march else ''}",
               flush=True)
         if (v["tsdf_share"] >= SHARD_TSDF_SHARE or v["weight_share"] >= SHARD_WEIGHT_SHARE
-                or v["vmap_p99"] >= SHARD_VMAP_P99 or not v["hits"]):
+                or (v["vmap_p99"] >= SHARD_VMAP_P99 and not march) or not v["hits"]):
             _fail(f"{path}: the volume of frame {SHARD_FORCED[1]} differs from phase 4's")
+        if march:
+            g = recs[0]["march_gap"]
+            print(f"    its model maps against the single-device march (M1 on the whole "
+                  f"gathered volume, its pose): {g['differ']} of {g['hits']} hit pixels differ, "
+                  f"largest difference {g['max']:.3g}", flush=True)
+            if g["differ"] or not g["hits"]:
+                _fail(f"{path}: the sharded march's model maps differ from the single-device "
+                      f"march on {g['differ']} pixels (largest {g['max']:.3g})")
         if sd == 1:
             gates = face_gates(poses, oks, params, intr, device)
             print(f"    faces gated on a frame: {gate_runs(gates)}", flush=True)
@@ -2605,7 +2966,7 @@ def run_sanitizer(smi: str) -> None:
     bounds-checked build of the kernels (compute-sanitizer refuses this
     card's machine): every kernel form at the main path's shapes and at
     test scale, each run ending without a fault and launching each of the
-    five kernels; then the negative run, K5 with an output one row short,
+    five kernels and M1 and M2; then the negative run, K5 with an output one row short,
     which must trap, or the check is not live."""
     from kinfu_tpu_torch.tools import sanitize
 
@@ -2617,7 +2978,7 @@ def run_sanitizer(smi: str) -> None:
             print(r["output"][-4000:], flush=True)
             _fail(f"the checked build's run at scale {scale} failed (a kernel indexed outside "
                   f"its arrays: {r['trap']})")
-        for key, name, *_ in KERNELS:
+        for key, name, *_ in KERNELS + MARCH_KERNELS:
             if r["launches"].get(key, 0) <= 0:
                 _fail(f"{name} was not launched in the checked build's run at scale {scale}")
     r = sanitize.run_child(negative=True, timeout=SANITIZE_TIMEOUT)
@@ -2638,6 +2999,11 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+#: the step configurations of --count-syncs (fused_mode, raycast_mode): the
+#: main path, and the non-fused step with each march raycast
+COUNT_SYNCS_MODES = (("auto", "auto"), ("off", "hier"), ("off", "step"))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-table", metavar="PATH",
@@ -2645,7 +3011,8 @@ def main() -> None:
                          "given, phase 4d also profiles rank 0 of the Z-sharded step")
     ap.add_argument("--count-syncs", action="store_true",
                     help="only count the host syncs of a step (frames 2-5 of the orbit, "
-                         "under sync-debug mode \"warn\") and exit, printing no result")
+                         "under sync-debug mode \"warn\"), with its launches and ms a "
+                         "frame, for each of COUNT_SYNCS_MODES, and exit, printing no result")
     args = ap.parse_args()
     table = args.profile_table or str(PROFILE_TABLE)
 
@@ -2678,8 +3045,13 @@ def main() -> None:
     params, intr = configure()
     if args.count_syncs:
         frames, _ = orbit_frames(6, intr)
-        print(f"host syncs a step: {count_syncs(frames, params, intr, device):g} "
-              f"(frames 2-5 of the orbit)", flush=True)
+        for fused_mode, raycast_mode in COUNT_SYNCS_MODES:
+            p = params.replace(fused_mode=fused_mode, raycast_mode=raycast_mode)
+            r = step_syncs(frames, p, intr, device)
+            print(f"host syncs a step: {r['syncs']:g} (frames 2-5 of the orbit, fused_mode="
+                  f"{fused_mode!r}, raycast_mode={raycast_mode!r}); {r['ms']:.3f} ms/frame "
+                  f"(median, CUDA events, under \"warn\") on {smi}; launches a frame: "
+                  f"{r['launches']}", flush=True)
         return
     n = ORBIT_FRAMES
     t0 = time.perf_counter()
@@ -2715,7 +3087,7 @@ def main() -> None:
     run_parity(params, intr, device, smi)
     torch.cuda.empty_cache()
 
-    syncs = count_syncs(frames[:6], params, intr, device)
+    syncs = step_syncs(frames[:6], params, intr, device)["syncs"]
     print(f"[4] orbit: {n} frames through init_state + kinfu_step, icp_mode="
           f"{params.icp_mode!r}, each step under sync-debug mode \"error\"; host syncs a "
           f"step: {syncs:g} (counted over 4 steps under \"warn\")", flush=True)
@@ -2734,6 +3106,7 @@ def main() -> None:
                 or not bool(torch.isfinite(nm).all()):
             _fail(f"model map level {lv}: bad shape {tuple(vm.shape)} or non-finite values")
     hit_frac = float((state.model_nmaps[0] != 0).any(-1).float().mean())
+    final_tsdf = state.vol.tsdf  # phase 4e's volume
     del state
     torch.cuda.empty_cache()
     ate = ate_rmse(list(poses), gt[:n])
@@ -2785,6 +3158,10 @@ def main() -> None:
     c_ms = run_corner(c_frames, c_gt, params, intr, device, res, k1_want, smi)
     nf_launches, nf_ms, nf_poses = run_nonfused(frames[:n], gt, params, intr, device, poses,
                                                 smi)
+    m_res, m_paths, m_legs = run_marches(frames[:n], gt, params, intr, device, final_tsdf,
+                                         poses[n - 1], poses, smi)
+    del final_tsdf
+    torch.cuda.empty_cache()
 
     print(f"[5] session: {n} frames through KinFuSession (default device)", flush=True)
     s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
@@ -2836,6 +3213,11 @@ def main() -> None:
         print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), max abs err {err:.3g}, {launches[key] / n:g} launches a frame  "
               f"[{smi}]", flush=True)
+    for (key, name, *_), leg in zip(MARCH_KERNELS, ("march_step", "march_hier")):
+        err, ms, plain_ms, bound_ms, bound_by = m_res[key]
+        print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), max abs err {err:.3g}, {m_paths[leg][key] / n:g} launches a frame "
+              f"of the {leg} leg  [{smi}]", flush=True)
     profile_steps(frames[:n], params, intr, device, table, ms_frame)
     profile_steps(c_frames, params, intr, device, str(Path(table).with_suffix(
         ".corner.txt")), c_ms, n=28, first=20, label="corner orbit (two faces live)", icp=False)
@@ -2853,10 +3235,12 @@ def main() -> None:
     paths = {"orbit": launches, "session": s_launches, "cli_session": cli_launches,
              "non_fused": nf_launches, "relocalize_step": reloc_launches,
              "pose_graph_session": pg_launches, **stream_launches, **shard_launches,
-             "sweep": sweep_launches}
+             "sweep": sweep_launches, **m_paths}
     for path in (*shard_launches, "sweep"):
-        for key, name, *_ in KERNELS:
-            if paths[path].get(key, 0) <= 0:
+        want = (("icp_normal_eqs", "build_face", "face_integrate", "march_rays")
+                if path == "sharded_march" else tuple(key for key, *_ in KERNELS))
+        for key, name, *_ in KERNELS + MARCH_KERNELS:
+            if key in want and paths[path].get(key, 0) <= 0:
                 _fail(f"{name} was not launched on the path {path}")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2874,6 +3258,15 @@ def main() -> None:
          "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()
                               if p.startswith("sharded")}}
         for key, name, src, rep in SHARD_KERNELS
+    ] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": int(m_paths[leg][key]), "max_abs_err": float(m_res[key][0]),
+         "ms": m_res[key][1], "plain_ms": m_res[key][2], "bound_ms": m_res[key][3],
+         "bound_by": m_res[key][4], "library_ms": None,
+         "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()},
+         **({"slab_form": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
+                                   m_res["march_slab"]))} if key == "march_rays" else {})}
+        for (key, name, src, rep), leg in zip(MARCH_KERNELS, ("march_step", "march_hier"))
     ]}
     print(json.dumps(summary))
     print(f"{smi}")

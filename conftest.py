@@ -52,6 +52,7 @@ SECONDS = {
     "test_session.py": 38,
     "test_torch_tools.py": 38,
     "test_pallas_icp.py": 35,
+    "test_torch_march.py": 63,
     "test_torch_icp_warped.py": 30,
     "test_torch_icp.py": 25,
     "test_sanitizers.py": 24,
@@ -65,6 +66,7 @@ SECONDS = {
     "test_viz3d.py": 11,
     "test_golden_trajectory.py": 9,
     "test_torch_facewarp.py": 7,
+    "test_torch_integrate_paths.py": 4,
     "test_se3.py": 3,
     "test_intrinsics.py": 2,
     "test_io.py": 1,

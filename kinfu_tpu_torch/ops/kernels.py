@@ -63,6 +63,8 @@ _SIGNATURES = {
     "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P] * 2,
     "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P] * 2,
     "kinfu_icp_solve": [_I] + [_P] * 12 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    "kinfu_march_rays": [_P] * 9 + [_I] * 7 + [_F] + [_P] * 2,
+    "kinfu_march_hier": [_P] * 9 + [_I] * 6 + [_F] * 4 + [_P] * 2,
 }
 
 #: the loaded library and whether it is the checked build

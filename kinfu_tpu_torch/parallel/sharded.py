@@ -20,7 +20,8 @@ maps, frame count); every rank is given the whole frame. Per frame:
     same global plane, so the composite is exact), and every rank shades
     and resamples them (`face_fields`, K5). The march raycast
     (`raycast_mode="step"`, the CPU's default here as in JAX) marches each
-    rank's t interval with a `HALO` of 3 rows, composites with a `pmin`,
+    rank's t interval with a `HALO` of 3 rows (M1's slab form on the card,
+    `volume/raycast.py::march_rays`), composites with a `pmin`,
     picks one winning rank a pixel and broadcasts its shading with a
     masked `psum`.
 
@@ -72,12 +73,10 @@ from kinfu_tpu_torch.tracking.icp import ICPResult, _normal_equations, icp_loop,
 from kinfu_tpu_torch.volume.integrate import fold_shard_origin, integrate
 from kinfu_tpu_torch.volume.raycast import (
     _INF,
-    _f32,
     _rotate_t,
-    camera_rays,
-    march,
+    march_inputs,
+    march_rays,
     march_steps_bound,
-    ray_aabb,
     shade,
 )
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume, pack_rgb
@@ -194,24 +193,18 @@ def sharded_raycast(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
     Zl, Y, X = tsdf_local.shape
     n, idx = mesh.world, mesh.rank
     Zg = Zl * n
-    dev = tsdf_local.device
-    vsx, vsy, vsz = params.voxel_size
-    step = params.raycast_step_voxels * vsx
-    inv_vs = _f32([1.0 / vsx, 1.0 / vsy, 1.0 / vsz]).to(dev)
-
+    vsz = params.voxel_size[2]
     padded = halo_exchange(mesh, tsdf_local, HALO, 0)
     z0 = idx * Zl
-    org, dirs = camera_rays(cam2vol, intr)
-    tnear, tfar = ray_aabb(org, dirs, _f32(params.volume_range).to(dev))
-    t_start = torch.clamp(tnear, min=0.0) + step
+    org, dirs, t_start, tfar, step, inv_vs = march_inputs(cam2vol, intr, params)
     if gate is not None:
         tfar = torch.where(gate, tfar, -_INF)
     z_lo = float(np.float32(z0) * np.float32(vsz))
     z_hi = float(np.float32(z0 + Zl) * np.float32(vsz))
     k_lo, t_hi = _local_t_interval(org[2], dirs[..., 2], z_lo, z_hi, t_start, tfar, step)
     dims_g = (Zg, Y, X)
-    res = march(padded, dims_g, z0 - HALO, org, dirs, t_start, t_hi, step, inv_vs,
-                k_start=k_lo, max_steps=march_steps_bound(dims_g, params.voxel_size, step))
+    res = march_rays(padded, dims_g, z0 - HALO, org, dirs, t_start, t_hi, step, inv_vs,
+                     k_start=k_lo, max_steps=march_steps_bound(dims_g, params.voxel_size, step))
 
     hit_t, back_t = pmin(torch.stack([res.hit_t, res.back_t]))
     hit = (hit_t < back_t) & (hit_t < _INF)

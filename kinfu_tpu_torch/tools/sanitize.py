@@ -2,11 +2,12 @@
 
 Two parts:
 
-(a) On the card: every form of the five CUDA kernels (K1-K5) runs in the
-    bounds-checked build of csrc/ (`-DKINFU_CHECKED -lineinfo`,
-    csrc/checked.cuh), in which every global load and store of a kernel
-    traps on an index outside the array that the wrapper passed, and the
-    launch then fails at the next synchronisation. The array lengths are
+(a) On the card: every form of the five CUDA kernels (K1-K5) and of the
+    march kernels (M1, M2) runs in the bounds-checked build of csrc/
+    (`-DKINFU_CHECKED -lineinfo`, csrc/checked.cuh), in which every global
+    load and store of a kernel traps on an index outside the array that
+    the wrapper passed, and the launch then fails at the next
+    synchronisation. The array lengths are
     the tensors' numel, so an overrun is caught even where it would land
     inside another tensor of PyTorch's caching allocator.
     compute-sanitizer exists on the card's machine but refuses the device
@@ -25,9 +26,10 @@ Two parts:
     each face, on a gated-off face whose stack K2 left unwritten, and on an
     interior Z slab and Y slab (the Y slab's +-x faces in the (2, 1, 0)
     frame); K4 on each face and on the halo-padded Z and Y slabs; K5's
-    six-face composite, all on the volume and model maps of 3 frames of
-    the fused orbit and on frame 3; then the corner orbit up to its first
-    frame with two live faces. It prints each kernel's launches
+    six-face composite; M1 on the volume and in its Z-slab form, and M2;
+    all on the volume and model maps of 3 frames of the fused orbit and on
+    frame 3; then the corner orbit up to its first frame with two live
+    faces. It prints each kernel's launches
     (`ops/kernels.py`'s counts) on its last line as `launches {json}`. `--negative` calls K5's C entry directly with a
     vertex buffer one row short, which must trap; a run that ends without
     a fault prints "negative: no fault" and exits 0.
@@ -305,6 +307,36 @@ def launch_faces(vol, frame, T, params, intr) -> None:
     _sync(f"K5 six-face composite, gates {gates.int().tolist()}")
 
 
+def launch_marches(tsdf, T, params, intr) -> None:
+    """M1 on the whole volume and in its Z-slab form (the interior slab 1
+    of RANKS, padded with the march's HALO rows, its per-ray k_start and
+    t_end), and M2, from the camera pose T (world from camera)."""
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.parallel.sharded import HALO, _local_t_interval
+    from kinfu_tpu_torch.volume import raycast as rc
+
+    dev = tsdf.device
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=dev))
+    cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=dev))
+    org, dirs, ts, tfar, step, inv_vs = rc.march_inputs(compose(inverse(volp), cam), intr,
+                                                        params)
+    vs = params.voxel_size
+    dims = tuple(tsdf.shape)
+    bound = rc.march_steps_bound(dims, vs, step)
+    rc.march_rays(tsdf, dims, 0, org, dirs, ts, tfar, step, inv_vs, max_steps=bound)
+    _sync("M1 march_rays, the whole volume")
+    rc.march_hier_rays(tsdf, rc.build_occupancy(tsdf), org, dirs, ts, tfar, step, inv_vs)
+    _sync("M2 march_hier")
+    Zl, r = dims[0] // RANKS, 1
+    padded = padded_slab(tsdf, 0, r, RANKS, HALO)
+    z_lo = float(np.float32(r * Zl) * np.float32(vs[2]))
+    z_hi = float(np.float32((r + 1) * Zl) * np.float32(vs[2]))
+    k_lo, t_hi = _local_t_interval(org[2], dirs[..., 2], z_lo, z_hi, ts, tfar, step)
+    rc.march_rays(padded, dims, r * Zl - HALO, org, dirs, ts, t_hi, step, inv_vs, k_start=k_lo,
+                  max_steps=bound)
+    _sync(f"M1 march_rays, Z slab {r} padded by {HALO}")
+
+
 def launch_corner(params, intr, device) -> None:
     """The corner orbit through the fused step up to its first frame whose
     tracked pose gates two faces."""
@@ -346,7 +378,9 @@ def launch_all(scale: str, device) -> None:
         state, _ = kinfu_step(state, d, c, params, intr)
     _sync("3 frames of the fused orbit")
     launch_icp(state, frames[3][0], params, intr)
-    launch_faces(state.vol, frames[3], np.linalg.inv(traj[0]) @ traj[3], params, intr)
+    T3 = np.linalg.inv(traj[0]) @ traj[3]
+    launch_faces(state.vol, frames[3], T3, params, intr)
+    launch_marches(state.vol.tsdf, T3, params, intr)
     del state
     launch_corner(params, intr, device)
 

@@ -1,15 +1,20 @@
 """Raycast surface prediction: the march family, shading and the dispatcher
 (port of kinfu_tpu/volume/raycast.py).
 
-All rays march in lockstep, sampling the TSDF with nearest-voxel gathers;
-hit refinement and normals run afterwards as one vectorised pass over the
-recorded hit parameters. The JAX package computes all of this outside any
-Pallas kernel, so it stays plain PyTorch on every device. Its
-`lax.while_loop`s become Python loops that stop when no ray is alive and
-never run past the JAX bound on steps. On a CUDA device that test reads
-the device once a step, so "hier" and "step" are opt-in there: "auto"
-takes the warped raycast (K4 + face shading + K5,
-`ops/face_raycast.py::raycast_warped`), which never reads the device.
+The JAX package marches all rays in lockstep inside one `lax.while_loop`,
+sampling the TSDF with nearest-voxel gathers, whose condition the device
+evaluates; hit refinement and normals run afterwards as one vectorised
+pass over the recorded hit parameters. All of it runs outside Pallas. Here
+each march has a plain PyTorch twin (`march`, `march_hier`), a Python loop
+that stops when no ray is alive and never runs past the JAX bound, and a
+hand-written CUDA kernel with one thread per ray that loops until that
+ray's own stop: M1 (`march_rays`, csrc/march_rays.cu) and M2
+(`march_hier_rays`, csrc/march_hier.cu). A CPU tensor takes the twin, a
+CUDA tensor launches the kernel or raises, so "hier" and "step" read the
+device no more than "warped" (K4 + face shading + K5,
+`ops/face_raycast.py::raycast_warped`), which "auto" takes on the card
+wherever `warp_dims_ok`. Occupancy and shading stay plain PyTorch, built
+with device constants so that they make no host sync either.
 
 The marcher and shader take a local Z-slab of the global volume (`z0h` =
 global z index of local row 0, `dims_g` = global dims), as in JAX; the
@@ -31,6 +36,7 @@ JAX operation order, so that they round as XLA's do.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -38,12 +44,16 @@ import numpy as np
 import torch
 
 from kinfu_tpu_torch.config import KinFuParams
+from kinfu_tpu_torch.device import constant
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose
 from kinfu_tpu_torch.numerics import PIX_CLAMP, rint_index, sqrt32
+from kinfu_tpu_torch.ops import kernels
 from kinfu_tpu_torch.volume.tsdf import SHORTMAX, TSDFVolume, tsdf_to_float
 
 _INF = 1e30
+#: the kernels' loop bound when the caller gives none (int32 max)
+_NO_BOUND = 2**31 - 1
 
 
 class MarchResult(NamedTuple):
@@ -51,6 +61,20 @@ class MarchResult(NamedTuple):
     hit_t: torch.Tensor
     #: ray parameter of the first -,+ (backface) event, +inf when none
     back_t: torch.Tensor
+
+
+class MarchWork(NamedTuple):
+    """What a march kernel must do on given inputs, filled in place by its
+    plain twin (`march_work`, `march_hier_work`)."""
+
+    #: bool, one flag per element the kernel may read (the volume's voxels,
+    #: then, for `march_hier`, the occupancy cells): set where a live ray
+    #: reads it (a voxel of a valid sample, any cell)
+    read: torch.Tensor
+    #: int64 [3]: loop iterations of live rays that sample a voxel, of them
+    #: those whose two samples are both valid (the crossing rules run), and
+    #: (`march_hier`) iterations of live rays in coarse mode
+    counts: torch.Tensor
 
 
 def _index(x: torch.Tensor) -> torch.Tensor:
@@ -66,8 +90,16 @@ def _floor_index(x: torch.Tensor) -> torch.Tensor:
     return torch.floor(x).clamp(-PIX_CLAMP, PIX_CLAMP).long()
 
 
-def _f32(values) -> torch.Tensor:
-    return torch.tensor(np.asarray(values, np.float32))
+@functools.lru_cache(maxsize=None)
+def f32_constant(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """float32 `values` on `device`, built once per device and values
+    (`device.constant`: no host sync on the card). Must not be written to."""
+    return constant(np.asarray(values, np.float32), torch.float32, device)
+
+
+def inv_voxel_size(voxel_size, device) -> torch.Tensor:
+    """float32 [1 / vsx, 1 / vsy, 1 / vsz] on `device`, a cached constant."""
+    return f32_constant(tuple(1.0 / v for v in voxel_size), torch.device(device))
 
 
 def _sample_nearest(tsdf_flat, dims_g, z0h, local_z, p_vox):
@@ -75,6 +107,12 @@ def _sample_nearest(tsdf_flat, dims_g, z0h, local_z, p_vox):
     (value, valid). The backing array covers global z rows
     [z0h, z0h + local_z); validity is the reference's 1-voxel global border
     and local availability."""
+    lin, valid = _nearest_index(dims_g, z0h, local_z, p_vox)
+    return tsdf_to_float(tsdf_flat[lin]), valid
+
+
+def _nearest_index(dims_g, z0h, local_z, p_vox):
+    """`_sample_nearest`'s (linear index into the slab, valid)."""
     Zg, Y, X = dims_g
     xi = _index(p_vox[..., 0])
     yi = _index(p_vox[..., 1])
@@ -83,7 +121,7 @@ def _sample_nearest(tsdf_flat, dims_g, z0h, local_z, p_vox):
     zl = zi - z0h
     valid = valid & (zl >= 0) & (zl < local_z)
     lin = ((zl * Y + yi) * X + xi).clamp(0, local_z * Y * X - 1)
-    return tsdf_to_float(tsdf_flat[lin]), valid
+    return lin, valid
 
 
 def trilinear(tsdf_flat, dims_g, z0h, local_z, p_vox):
@@ -154,40 +192,52 @@ def march(
     inv_vs: torch.Tensor,
     k_start: torch.Tensor | None = None,
     max_steps: int | None = None,
+    work: MarchWork | None = None,
 ) -> MarchResult:
     """Lockstep ray march over sample grid t_k = t_start + k*step, starting
-    at k = k_start (default 0) while t_k < t_end. Sample positions come
-    from an integer counter, never accumulated. tsdf_local: [local_Z, Y, X]
-    int16 slab covering global z rows [z0h, z0h + local_Z). The loop ends
-    when no ray is alive, after at most `max_steps` steps (default: the
-    volume diagonal over `step`, which no ray can outlast)."""
+    at k = k_start (default 0) while t_k < t_end: the plain twin of M1
+    (`march_rays`). Sample positions come from an integer counter, never
+    accumulated. tsdf_local: [local_Z, Y, X] int16 slab covering global z
+    rows [z0h, z0h + local_Z). The loop ends when no ray is alive, after at
+    most `max_steps` steps; with None it has no bound, as JAX's has none:
+    every ray ends at its finite t_end (the dispatchers pass
+    `march_steps_bound`). The loop's test reads the device once a step (use
+    `march_rays` there). `work` (`march_work`) receives what M1 must do."""
     local_z = tsdf_local.shape[0]
     tsdf_flat = tsdf_local.reshape(-1)
     if k_start is None:
         k_start = torch.zeros(t_start.shape, dtype=torch.int32, device=t_start.device)
-    if max_steps is None:
-        vs = (1.0 / inv_vs).tolist()
-        max_steps = march_steps_bound(dims_g, vs, step)
 
     def t_of(k):
         return t_start + k.float() * step
 
+    def sample(t):
+        lin, valid = _nearest_index(dims_g, z0h, local_z, _point(org, dirs, t) * inv_vs)
+        return lin, tsdf_to_float(tsdf_flat[lin]), valid
+
     k = k_start
     t0 = t_of(k)
-    f_prev, v_prev = _sample_nearest(tsdf_flat, dims_g, z0h, local_z, _point(org, dirs, t0) * inv_vs)
+    lin, f_prev, v_prev = sample(t0)
     alive = t0 < t_end
+    if work is not None:
+        work.read[lin[alive & v_prev]] = True
     hit_t = torch.full(t0.shape, _INF, dtype=torch.float32, device=t0.device)
     back_t = hit_t.clone()
 
-    for _ in range(max_steps):
+    n = 0
+    while max_steps is None or n < max_steps:
         if not bool(alive.any()):
             break
+        n += 1
         knext = k + 1
         tcur = t_of(k)
         tnext = t_of(knext)
-        f_next, v_next = _sample_nearest(tsdf_flat, dims_g, z0h, local_z,
-                                         _point(org, dirs, tnext) * inv_vs)
+        lin, f_next, v_next = sample(tnext)
         both = v_prev & v_next & alive
+        if work is not None:
+            work.read[lin[alive & v_next]] = True
+            work.counts[0] += alive.sum()
+            work.counts[1] += both.sum()
         front = both & (f_prev > 0.0) & (f_next < 0.0)
         back = both & (f_prev < 0.0) & (f_next > 0.0)
         frac = f_prev / torch.clamp(f_prev - f_next, min=1e-30)
@@ -196,6 +246,64 @@ def march(
         alive = alive & ~front & ~back & (tnext < t_end)
         k, f_prev, v_prev = knext, f_next, v_next
     return MarchResult(hit_t=hit_t, back_t=back_t)
+
+
+def _ray_tensors(name: str, org, dirs, t_start, t_end, inv_vs):
+    """The float32 ray arrays a march kernel takes, contiguous (a pose's
+    translation is a strided view), checked against t_start's shape."""
+    shape = tuple(t_start.shape)
+    out = [a.contiguous() for a in (org, dirs, t_start, t_end, inv_vs)]
+    for a, want in zip(out, ((3,), shape + (3,), shape, shape, (3,))):
+        kernels.check(name, a, torch.float32, want)
+    return out
+
+
+def march_rays(
+    tsdf_local: torch.Tensor,
+    dims_g: Tuple[int, int, int],
+    z0h: int,
+    org: torch.Tensor,
+    dirs: torch.Tensor,
+    t_start: torch.Tensor,
+    t_end: torch.Tensor,
+    step: float,
+    inv_vs: torch.Tensor,
+    k_start: torch.Tensor | None = None,
+    max_steps: int | None = None,
+) -> MarchResult:
+    """M1: `march`'s events. CPU tensors take `march`; CUDA tensors launch
+    csrc/march_rays.cu, one thread a ray, with no host read. The full
+    volume passes z0h = 0 and dims_g = its shape; the Z-slab form a
+    halo-padded slab, its global row z0h, and per-ray `k_start` and
+    `t_end`. `max_steps` None: no bound, as in `march`."""
+    if tsdf_local.device.type == "cpu":
+        return march(tsdf_local, dims_g, z0h, org, dirs, t_start, t_end, step, inv_vs,
+                     k_start=k_start, max_steps=max_steps)
+    kernels.library()
+    local_z, Y, X = tsdf_local.shape
+    if tuple(dims_g[1:]) != (Y, X):
+        raise ValueError(f"march_rays: dims_g {tuple(dims_g)} do not match the slab's "
+                         f"{(Y, X)} rows and columns")
+    max_steps = _NO_BOUND if max_steps is None else min(max_steps, _NO_BOUND)
+    org, dirs, t_start, t_end, inv_vs = _ray_tensors("march_rays", org, dirs, t_start, t_end,
+                                                     inv_vs)
+    kernels.check_cuda("march_rays", tsdf_local, org, dirs, t_start, t_end, inv_vs)
+    kernels.check("march_rays", tsdf_local, torch.int16, (local_z, Y, X))
+    if k_start is not None:
+        kernels.check_cuda("march_rays", tsdf_local, k_start)
+        kernels.check("march_rays k_start", k_start, torch.int32, t_start.shape)
+    hit = torch.empty_like(t_start)
+    back = torch.empty_like(t_start)
+    kernels.launch(
+        "kinfu_march_rays",
+        kernels.ptr(tsdf_local), kernels.ptr(org), kernels.ptr(dirs), kernels.ptr(t_start),
+        kernels.ptr(t_end), None if k_start is None else kernels.ptr(k_start),
+        kernels.ptr(inv_vs), kernels.ptr(hit), kernels.ptr(back),
+        t_start.numel(), local_z, int(dims_g[0]), Y, X, int(z0h), int(max_steps),
+        float(np.float32(step)),
+        kernels.lengths(tsdf_local, org, dirs, t_start, t_end, k_start, inv_vs, hit, back),
+    )
+    return MarchResult(hit_t=hit, back_t=back)
 
 
 def march_chunked(
@@ -214,7 +322,9 @@ def march_chunked(
     """Chunked lockstep march with the events of `march`: each iteration
     samples `chunk`+1 positions of every ray at once, finds the crossings
     of the chunk and keeps each ray's earliest event; at most
-    ceil(max_steps / chunk) iterations."""
+    ceil(max_steps / chunk) iterations. It stays plain PyTorch, with a host
+    read a chunk: only tests call it, as in JAX, where no dispatcher takes
+    it (kinfu_tpu/volume/raycast.py:527-528)."""
     local_z = tsdf_local.shape[0]
     tsdf_flat = tsdf_local.reshape(-1)
     n_chunks = max(1, -(-max_steps // chunk))
@@ -283,13 +393,17 @@ def march_hier(
     inv_vs: torch.Tensor,
     block: int = 8,
     max_iters: int | None = None,
+    work: MarchWork | None = None,
 ) -> MarchResult:
-    """Two-level lockstep march: DDA over coarse cells, fine steps only
-    inside cells that can hold a crossing. Same events as `march` up to
-    the sub-step sampling phase: fine sampling inside an occupied cell
-    starts two steps before the cell entry. Every iteration reads one
-    entry per ray of a combined fine+coarse table; at most `max_iters`
-    iterations (default 8 (Z + Y + X), the JAX bound)."""
+    """Two-level lockstep march, the plain twin of M2 (`march_hier_rays`):
+    DDA over coarse cells, fine steps only inside cells that can hold a
+    crossing. Same events as `march` up to the sub-step sampling phase:
+    fine sampling inside an occupied cell starts two steps before the cell
+    entry. Every iteration reads one entry per ray of a combined
+    fine+coarse table; at most `max_iters` iterations (default 8 (Z + Y +
+    X), the JAX bound). Its loop test reads the device once an iteration.
+    `work` (`march_hier_work`) receives what M2 must do; its `read` indexes
+    the combined table."""
     Zl, Y, X = tsdf_local.shape
     Zc, Yc, Xc = occ.shape
     assert (Zc, Yc, Xc) == (Zl // block, Y // block, X // block)
@@ -304,7 +418,7 @@ def march_hier(
         max_iters = int(8 * (Zl + Y + X))
 
     vs = 1.0 / inv_vs  # [3] metres per voxel
-    cmax = torch.tensor([Xc - 1, Yc - 1, Zc - 1], dtype=torch.int64, device=dev)
+    cmax = constant([Xc - 1, Yc - 1, Zc - 1], torch.int64, dev)
 
     # Rays march independently, so the loop runs on the live ones only: the
     # working set shrinks to them whenever fewer than half of it live. The
@@ -360,8 +474,14 @@ def march_hier(
         fine_lin, v_next, _, _ = sample_indices(tnext, dirs_w, safe_dirs, pos_dir)
         _, _, coarse_lin, t_exit = sample_indices(t, dirs_w, safe_dirs, pos_dir)
 
-        raw = comb[torch.where(coarse, coarse_lin, fine_lin)]
+        lin = torch.where(coarse, coarse_lin, fine_lin)
+        raw = comb[lin]
         neg = raw < 0
+        if work is not None:
+            work.read[lin[alive & (coarse | v_next)]] = True
+            work.counts[0] += (alive & ~coarse).sum()
+            work.counts[1] += (alive & ~coarse & v_prev & v_next).sum()
+            work.counts[2] += (alive & coarse).sum()
 
         # fine rays: crossing tests on consecutive samples
         f_next = raw.float() * (1.0 / SHORTMAX)
@@ -390,6 +510,82 @@ def march_hier(
     return MarchResult(hit_t=hit_g.reshape(shape), back_t=back_g.reshape(shape))
 
 
+def march_hier_rays(
+    tsdf_local: torch.Tensor,
+    occ: torch.Tensor,
+    org: torch.Tensor,
+    dirs: torch.Tensor,
+    t_start: torch.Tensor,
+    t_end: torch.Tensor,
+    step: float,
+    inv_vs: torch.Tensor,
+    block: int = 8,
+    max_iters: int | None = None,
+) -> MarchResult:
+    """M2: `march_hier`'s events. CPU tensors take `march_hier`; CUDA
+    tensors launch csrc/march_hier.cu, one thread a ray, with no host read.
+    The loop's float scalars (step, 0.05 step, 0.25 step, 2 step) are
+    formed in double here and rounded to float32, as PyTorch rounds the
+    twin's Python scalars."""
+    if tsdf_local.device.type == "cpu":
+        return march_hier(tsdf_local, occ, org, dirs, t_start, t_end, step, inv_vs, block,
+                          max_iters)
+    kernels.library()
+    Zl, Y, X = tsdf_local.shape
+    if max_iters is None:
+        max_iters = int(8 * (Zl + Y + X))
+    org, dirs, t_start, t_end, inv_vs = _ray_tensors("march_hier_rays", org, dirs, t_start,
+                                                     t_end, inv_vs)
+    kernels.check_cuda("march_hier_rays", tsdf_local, occ, org, dirs, t_start, t_end, inv_vs)
+    kernels.check("march_hier_rays", tsdf_local, torch.int16, (Zl, Y, X))
+    kernels.check("march_hier_rays", occ, torch.bool, (Zl // block, Y // block, X // block))
+    hit = torch.empty_like(t_start)
+    back = torch.empty_like(t_start)
+    f32 = np.float32
+    kernels.launch(
+        "kinfu_march_hier",
+        kernels.ptr(tsdf_local), kernels.ptr(occ), kernels.ptr(org), kernels.ptr(dirs),
+        kernels.ptr(t_start), kernels.ptr(t_end), kernels.ptr(inv_vs), kernels.ptr(hit),
+        kernels.ptr(back), t_start.numel(), Zl, Y, X, int(block), int(min(max_iters, _NO_BOUND)),
+        float(f32(step)), float(f32(0.05 * step)), float(f32(0.25 * step)),
+        float(f32(2.0 * step)),
+        kernels.lengths(tsdf_local, occ, org, dirs, t_start, t_end, inv_vs, hit, back),
+    )
+    return MarchResult(hit_t=hit, back_t=back)
+
+
+def _new_work(n_read: int, device) -> MarchWork:
+    return MarchWork(read=torch.zeros(n_read, dtype=torch.bool, device=device),
+                     counts=torch.zeros(3, dtype=torch.int64, device=device))
+
+
+def march_work(tsdf_local, dims_g, z0h, org, dirs, t_start, t_end, step, inv_vs,
+               k_start=None, max_steps=None):
+    """What M1 must do on `march_rays`'s inputs, as device counts from its
+    twin: (distinct voxels the live rays read, their loop iterations, the
+    iterations whose two samples are valid). chip_smoke.py turns them into
+    M1's bound."""
+    work = _new_work(tsdf_local.numel(), tsdf_local.device)
+    march(tsdf_local, dims_g, z0h, org, dirs, t_start, t_end, step, inv_vs, k_start=k_start,
+          max_steps=max_steps, work=work)
+    return work.read.sum(), work.counts[0], work.counts[1]
+
+
+def march_hier_work(tsdf_local, occ, org, dirs, t_start, t_end, step, inv_vs, block=8,
+                    max_iters=None):
+    """What M2 must do on `march_hier_rays`'s inputs, as device counts from
+    its twin: (distinct voxels and distinct occupancy cells the live rays
+    read, their fine iterations, of those the ones whose two samples are
+    valid, their coarse iterations). chip_smoke.py turns them into M2's
+    bound."""
+    n_fine = tsdf_local.numel()
+    work = _new_work(n_fine + occ.numel(), tsdf_local.device)
+    march_hier(tsdf_local, occ, org, dirs, t_start, t_end, step, inv_vs, block, max_iters,
+               work=work)
+    return (work.read[:n_fine].sum(), work.read[n_fine:].sum(), work.counts[0],
+            work.counts[1], work.counts[2])
+
+
 def shade(
     tsdf_local: torch.Tensor,
     dims_g: Tuple[int, int, int],
@@ -405,17 +601,14 @@ def shade(
     local_z = tsdf_local.shape[0]
     tsdf_flat = tsdf_local.reshape(-1)
     dev = org.device
-    vsx, vsy, vsz = voxel_size
-    inv_vs = _f32([1.0 / vsx, 1.0 / vsy, 1.0 / vsz]).to(dev)
-    delta = _f32([vsx, vsy, vsz]) * 0.5
+    inv_vs = inv_voxel_size(voxel_size, dev)
+    delta = np.float32(voxel_size) * np.float32(0.5)
 
     t_safe = torch.where(hit_mask, torch.clamp(hit_t, max=1e30), 0.0)
     vertex = _point(org, dirs, t_safe)
 
     def axis_grad(axis):
-        e = torch.zeros(3, dtype=torch.float32)
-        e[axis] = delta[axis]
-        e = e.to(dev)
+        e = f32_constant(tuple(float(delta[a]) if a == axis else 0.0 for a in range(3)), dev)
         f1, v1 = trilinear(tsdf_flat, dims_g, z0h, local_z, (vertex + e) * inv_vs)
         f2, v2 = trilinear(tsdf_flat, dims_g, z0h, local_z, (vertex - e) * inv_vs)
         return (f1 - f2) / float(2.0 * delta[axis]), v1 & v2
@@ -448,6 +641,19 @@ def camera_rays(cam2vol: Pose, intr: Intrinsics):
     d = _rotate(R, intr.pixel_rays(R.device))
     nrm = sqrt32(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
     return t, d / nrm[..., None]
+
+
+def march_inputs(cam2vol: Pose, intr: Intrinsics, params: KinFuParams):
+    """The march raycast's rays: (org [3], dirs [H,W,3], t_start, t_end
+    [H,W], step, inv_vs), each ray clipped to the volume's box and starting
+    one step inside it (tsdf_volume.cu:225-232); built from device
+    constants, so no host sync."""
+    dev = cam2vol.R.device
+    step = params.raycast_step_voxels * params.voxel_size[0]
+    org, dirs = camera_rays(cam2vol, intr)
+    tnear, tfar = ray_aabb(org, dirs, f32_constant(tuple(params.volume_range), dev))
+    return (org, dirs, torch.clamp(tnear, min=0.0) + step, tfar, step,
+            inv_voxel_size(params.voxel_size, dev))
 
 
 def resolve_raycast_mode(params: KinFuParams, shape_zyx, device, block: int = 8) -> str:
@@ -492,23 +698,16 @@ def raycast(
 
         return raycast_warped(vol, cam2vol, intr, params, gate=gate)
 
-    vsx, vsy, vsz = params.voxel_size
-    step = params.raycast_step_voxels * vsx
-    inv_vs = _f32([1.0 / vsx, 1.0 / vsy, 1.0 / vsz]).to(dev)
-
-    org, dirs = camera_rays(cam2vol, intr)
-    box_max = _f32(params.volume_range).to(dev)
-    tnear, tfar = ray_aabb(org, dirs, box_max)
-    t_start = torch.clamp(tnear, min=0.0) + step
+    org, dirs, t_start, tfar, step, inv_vs = march_inputs(cam2vol, intr, params)
     if gate is not None:
         tfar = torch.where(gate, tfar, -_INF)
 
     if mode == "hier":
         occ = build_occupancy(vol.tsdf, block)
-        res = march_hier(vol.tsdf, occ, org, dirs, t_start, tfar, step, inv_vs, block)
+        res = march_hier_rays(vol.tsdf, occ, org, dirs, t_start, tfar, step, inv_vs, block)
     elif mode == "step":
-        res = march(vol.tsdf, (Z, Y, X), 0, org, dirs, t_start, tfar, step, inv_vs,
-                    max_steps=march_steps_bound((Z, Y, X), params.voxel_size, step))
+        res = march_rays(vol.tsdf, (Z, Y, X), 0, org, dirs, t_start, tfar, step, inv_vs,
+                         max_steps=march_steps_bound((Z, Y, X), params.voxel_size, step))
     else:
         raise ValueError(f"unknown raycast_mode: {params.raycast_mode!r}")
     hit = (res.hit_t < res.back_t) & (res.hit_t < _INF)

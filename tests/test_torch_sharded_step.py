@@ -12,6 +12,8 @@ seconds of start-up), and the module's tests read its results:
     tolerances: poses within 1e-4, TSDF beyond 2e-2 on under 0.2% of
     voxels, weights differing on under 0.2%, the model maps' 99th
     percentile gap under 2e-3 (and above it on under 0.5% of pixels);
+    and the final model maps, bit for bit, against the single-device
+    march raycast of the gathered volume at the final pose;
   - `halo_exchange` along Z and Y, int16 and float32: each rank's padded
     slab is the whole volume's rows around it, zeros past its ends;
   - K1's row-shard form: `rigid_icp_local` on each rank's rows of a
@@ -190,6 +192,26 @@ def test_sharded_step_matches_jax_single_device(run):
     assert np.percentile(diff, 99) < 2e-3
     assert (diff > 2e-3).mean() < 5e-3
     assert ((np.abs(sv[..., 2]) > 0) != (np.abs(dv[..., 2]) > 0)).mean() < 5e-3
+
+
+def test_sharded_march_model_map_is_the_unsharded_march(run):
+    """The sharded march raycast (each rank's slab with its halo, k_start
+    and t_end, the pmin composite, one winning rank a pixel, the masked
+    psum) gives the model maps of the single-device "step" raycast of the
+    gathered volume at the final pose, bit for bit."""
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse
+    from kinfu_tpu_torch.pipeline.kinfu import _volume_pose
+    from kinfu_tpu_torch.volume.raycast import raycast
+
+    ranks, _ = run
+    outs, full = ranks[0]["step"]
+    assert outs[-1][1]
+    state = state_from_numpy(full, device="cpu")
+    cam2vol = compose(inverse(_volume_pose(PARAMS, "cpu")), state.pose)
+    rv, rn = raycast(state.vol, cam2vol, INTR, PARAMS)
+    np.testing.assert_array_equal(rv.numpy(), full["model_vmaps"][0])
+    np.testing.assert_array_equal(rn.numpy(), full["model_nmaps"][0])
+    assert (np.abs(full["model_vmaps"][0][..., 2]) > 0).sum() > 5000
 
 
 @pytest.mark.parametrize("case", range(3), ids=["z int16", "y int16", "z float32"])
