@@ -70,11 +70,23 @@ Phases; any failure exits non-zero before the result line:
      integrate and M2), each with no host sync a step (sync-debug "warn",
      frames 2-5) and every step under "error": every frame after the
      first tracks, the orbits' aligned ATE is <= 1 mm, and a frame
-     launches M2 or M1 once; then tests/test_pallas_integrate.py:249's
-     170-degree camera, one frame fused through the fused step's update
-     and raycast through M2 and through the warped path: a face other than
-     +z and +x is live and the march hits under 1% of the pixels that the
-     sweep misses;
+     launches M2 or M1 once; then four cameras inside the volume,
+     tests/test_pallas_integrate.py:249's 170 degrees about y and three
+     that look along -x (yaw -100 degrees), -y and +y (pitch +-90), each one
+     frame fused through the fused step's update and raycast through M2
+     and through the warped path: the view's face (-z, -x, -y, +y) is live
+     in the fusion and the raycast, no face gated off writes, and the
+     march hits under 1% of the pixels that the sweep misses;
+  4f. `python -m kinfu_tpu_torch bench` and `bench --corner`
+     (kinfu_tpu_torch/bench.py, the port of bench.py) as subprocesses at
+     their defaults (640x480, 512^3, 20 + 2 frames): each exits 0 and
+     prints one JSON line with exactly bench.py's keys and metric name and
+     a finite value > 0 (printed with its stderr diagnostics beside phase
+     4's and 4b's ms/frame); `bench.run` over the long run in this process
+     with its loop under sync-debug mode "error" (no host sync, every
+     frame after the first tracks); and the bench's slower paths
+     (--integrate gather, --raycast hier and step, --fused off) in this
+     process at 5 frames;
   5. the same 50 frames through KinFuSession with its default device, numpy
      frames in, the counts set to 0 just before: every frame tracks, the
      aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
@@ -172,6 +184,17 @@ Phases; any failure exits non-zero before the result line:
      M2 at the main path's
      shapes and at test scale must run without a fault and launch each
      kernel; then K5 with a vertex buffer one row short must trap;
+  7b. the stand-in for compute-sanitizer's racecheck, initcheck and
+     synccheck (sanitize.py --repeat, a child process, the normal build):
+     every form of phase 7 at the main path's shapes launched 20 times on
+     the same inputs, every output and K1's partial sums filled with one
+     of four sentinel bytes before each launch, must give the same bits
+     every time, K1's ticket must read 0 after each, and K1 (at 131
+     blocks) and K3 (on a 61-block persistent grid) launched 20 times more
+     on a second grid must give the same bits (K1: one iteration the same
+     counts and floats within 1e-4 of their largest entry, the finishing
+     form its pose within 1e-6 and its counts within 0.01%, as K1's row
+     shards in phase 4d);
   8. print one JSON line describing the kernels, the shard forms and M1
      and M2 (with
      each kernel's launches on every path this script drives, the sharded
@@ -2131,63 +2154,113 @@ def _roty(deg: float, t=(0.0, 0.0, 0.0)) -> np.ndarray:
     return T
 
 
-def run_backward(params, intr, device, smi: str) -> dict:
-    """Phase 4e (e): tests/test_pallas_integrate.py:249's camera (170
-    degrees about y, 3.3 m along z, inside the volume looking back along
-    -z at a sphere and a plane), at this width: one frame fused through the
-    fused step's update, then raycast through M2 ("hier") and through the
-    warped path. Fails unless the march hits under PARITY_MAX of the pixels
-    that the sweep misses and a face other than +z and +x is live."""
+def _rotx(deg: float, t=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """A rotation about x, then t (tests/test_torch_integrate_paths.py)."""
+    a = np.radians(deg)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    T[:3, 3] = t
+    return T
+
+
+def inside_scene(name: str):
+    """The scenes of INSIDE_VIEWS: tests/test_pallas_integrate.py:249's
+    sphere before a plane ("backward"), and tests/test_torch_integrate_
+    paths.py's room, walls at x = -1.1 and y = +-1.1 with a sphere before
+    each ("room")."""
+    from kinfu_tpu_torch.data.synthetic import SyntheticScene, plane, sphere
+
+    if name == "backward":
+        return SyntheticScene(primitives=[sphere((0.25, 0.0, 1.5), 0.5),
+                                          plane(np.array([0.0, 0.0, 0.7]),
+                                                np.array([0.0, 0.0, 1.0]))])
+    return SyntheticScene(primitives=[
+        plane(np.array([-1.1, 0.0, 0.0]), np.array([1.0, 0.0, 0.0])),
+        plane(np.array([0.0, 1.1, 0.0]), np.array([0.0, -1.0, 0.0])),
+        plane(np.array([0.0, -1.1, 0.0]), np.array([0.0, 1.0, 0.0])),
+        sphere((-0.5, 0.2, 2.2), 0.3), sphere((0.2, 0.6, 1.8), 0.25),
+        sphere((-0.2, -0.6, 2.2), 0.25)])
+
+
+#: cameras inside the volume (tag, scene, world from camera, the face that
+#: must be live in the fusion and the raycast): tests/test_pallas_integrate
+#: .py:249's 170 degrees about y, looking back along -z (with +x), and the
+#: faces no orbit reaches: a yaw of -100 degrees (-x, with -z) and pitches
+#: of +-90 degrees (-y and +y; the camera's y axis points down)
+INSIDE_VIEWS = (("170 degrees about y", "backward", _roty(170.0, t=(0.0, 0.0, 3.3)), "-z"),
+                ("yaw -100 degrees", "room", _roty(-100.0, t=(0.5, 0.0, 2.2)), "-x"),
+                ("pitch +90 degrees", "room", _rotx(90.0, t=(0.0, 0.3, 2.0)), "-y"),
+                ("pitch -90 degrees", "room", _rotx(-90.0, t=(0.0, -0.3, 2.0)), "+y"))
+
+
+def run_inside(params, intr, device, smi: str) -> dict:
+    """Phase 4e (e): each camera of INSIDE_VIEWS, at this width: one frame
+    fused into a fresh volume through the fused step's update (its
+    fusion, warped raycast and composite), then raycast through M2
+    ("hier") and through the warped path. The faces live in the fusion
+    are those that own the direction of a fused voxel, in the raycast
+    those that own a hit pixel's ray (`face_counts`). Fails unless the
+    view's face is live in both, no face is live that `faces_needed` /
+    `faces_needed_cam2vol` gated off, M2 launched once, and the march hits
+    under PARITY_MAX of the pixels that the sweep misses. Returns {tag:
+    the parity numbers and the live faces}."""
     import torch
 
-    from kinfu_tpu_torch.data.synthetic import SyntheticScene, plane, sphere
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.ops import kernels
     from kinfu_tpu_torch.ops.face_integrate import faces_needed
     from kinfu_tpu_torch.ops.face_raycast import faces_needed_cam2vol, raycast_warped
     from kinfu_tpu_torch.ops.facewarp import face_frames
     from kinfu_tpu_torch.ops.fused_step import fused_update
-    from kinfu_tpu_torch.ops import kernels
-    from kinfu_tpu_torch.tools.raycast_parity_probe import parity_stats
+    from kinfu_tpu_torch.tools.raycast_parity_probe import face_counts, parity_stats
     from kinfu_tpu_torch.volume.raycast import raycast
     from kinfu_tpu_torch.volume.tsdf import create_volume
 
-    scene = SyntheticScene(primitives=[sphere((0.25, 0.0, 1.5), 0.5),
-                                       plane(np.array([0.0, 0.0, 0.7]),
-                                             np.array([0.0, 0.0, 1.0]))])
-    T = _roty(170.0, t=(0.0, 0.0, 3.3))
-    depth, color = scene.render_frame(T, intr)
-    depth_m = torch.as_tensor(depth * np.float32(params.depth_scale), device=device)
-    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
-    cam = pose_from_matrix(torch.as_tensor(T, device=device))
-    vol2cam, cam2vol = compose(inverse(cam), volp), compose(inverse(volp), cam)
-    vol = create_volume(params.volume_dims, device=device)
-    good = torch.ones((), dtype=torch.bool, device=device)
-    vol, _, _ = fused_update(vol, depth_m, torch.as_tensor(color, device=device), vol2cam,
-                             cam2vol, intr, params, good)
-    kernels.reset_launch_counts()
-    march = raycast(vol, cam2vol, intr, params.replace(raycast_mode="hier"))
-    m_launches = kernels.LAUNCHES.get("march_hier", 0)
-    warped = raycast_warped(vol, cam2vol, intr, params)
     names = [f.name for f in face_frames()]
-    fuse_on = [nm for nm, g in zip(names, faces_needed(vol2cam, intr).tolist()) if g]
-    cast_on = [nm for nm, g in zip(names, faces_needed_cam2vol(cam2vol, intr).tolist()) if g]
-    stats = parity_stats(*(a.cpu().numpy() for a in warped), *(a.cpu().numpy() for a in march))
-    weighted = int((vol.weight > 0).sum())
-    print(f"  [4e] 170-degree camera (tests/test_pallas_integrate.py:249) at "
-          f"{intr.width}x{intr.height} / {params.volume_dims[0]}^3: {weighted} voxels fused; "
-          f"faces gated by the fusion {fuse_on}, by the raycast {cast_on}; M2 launched "
-          f"{m_launches} time(s); the warped raycast against M2: {json.dumps(stats)}  [{smi}]",
-          flush=True)
-    del vol
-    _empty_cache(device)
-    if m_launches != 1:
-        _fail(f"the 170-degree raycast launched M2 {m_launches} times, not once")
-    if not set(fuse_on) - {"+z", "+x"} or not set(cast_on) - {"+z", "+x"}:
-        _fail(f"the 170-degree camera engaged only {fuse_on} / {cast_on}")
-    if not stats["march_hits_sweep_misses"] < PARITY_MAX:
-        _fail(f"170-degree camera: the march hits {stats['march_hits_sweep_misses']:.4%} of "
-              f"the pixels that the sweep misses, not under {PARITY_MAX:.0%}")
-    return stats
+    volp = pose_from_matrix(torch.as_tensor(params.volume_pose, device=device))
+    good = torch.ones((), dtype=torch.bool, device=device)
+    out = {}
+    for tag, scene, T, face in INSIDE_VIEWS:
+        depth, color = inside_scene(scene).render_frame(T, intr)
+        depth_m = torch.as_tensor(depth * np.float32(params.depth_scale), device=device)
+        cam = pose_from_matrix(torch.as_tensor(T, device=device))
+        vol2cam, cam2vol = compose(inverse(cam), volp), compose(inverse(volp), cam)
+        vol = create_volume(params.volume_dims, device=device)
+        vol, _, nmap = fused_update(vol, depth_m, torch.as_tensor(color, device=device),
+                                    vol2cam, cam2vol, intr, params, good)
+        kernels.reset_launch_counts()
+        march = raycast(vol, cam2vol, intr, params.replace(raycast_mode="hier"))
+        m_launches = kernels.LAUNCHES.get("march_hier", 0)
+        warped = raycast_warped(vol, cam2vol, intr, params)
+        fuse_on = {nm for nm, g in zip(names, faces_needed(vol2cam, intr).tolist()) if g}
+        cast_on = {nm for nm, g in zip(names, faces_needed_cam2vol(cam2vol, intr).tolist())
+                   if g}
+        counts = face_counts(vol.weight, nmap, cam2vol, intr, params)
+        fuse_live = {nm for nm in names if counts[nm][0] > 0}
+        cast_live = {nm for nm in names if counts[nm][1] > 0}
+        stats = parity_stats(*(a.cpu().numpy() for a in warped),
+                             *(a.cpu().numpy() for a in march))
+        print(f"  [4e] {tag} ({scene} scene) at {intr.width}x{intr.height} / "
+              f"{params.volume_dims[0]}^3: gated by the fusion {sorted(fuse_on)}, by the "
+              f"raycast {sorted(cast_on)}; fused voxels and hit pixels by owning face "
+              f"{ {nm: c for nm, c in counts.items() if c != (0, 0)} }; M2 launched "
+              f"{m_launches} time(s); the warped raycast against M2: {json.dumps(stats)}  "
+              f"[{smi}]", flush=True)
+        del vol, march, warped, nmap
+        _empty_cache(device)
+        if m_launches != 1:
+            _fail(f"{tag}: the raycast launched M2 {m_launches} times, not once")
+        if face not in fuse_live or face not in cast_live:
+            _fail(f"{tag}: {face} is not live (fusion {sorted(fuse_live)}, raycast "
+                  f"{sorted(cast_live)})")
+        if not fuse_live <= fuse_on or not cast_live <= cast_on:
+            _fail(f"{tag}: faces gated off wrote voxels or pixels (fusion {sorted(fuse_live)} "
+                  f"of {sorted(fuse_on)}, raycast {sorted(cast_live)} of {sorted(cast_on)})")
+        if not stats["march_hits_sweep_misses"] < PARITY_MAX:
+            _fail(f"{tag}: the march hits {stats['march_hits_sweep_misses']:.4%} of the "
+                  f"pixels that the sweep misses, not under {PARITY_MAX:.0%}")
+        out[tag] = {**stats, "fusion_live": sorted(fuse_live), "raycast_live": sorted(cast_live)}
+    return out
 
 
 def run_marches(frames, gt, params, intr, device, tsdf, T_last, fused_poses, smi: str):
@@ -2197,8 +2270,8 @@ def run_marches(frames, gt, params, intr, device, tsdf, T_last, fused_poses, smi
     raycast_mode "hier" and then "step" (`run_march_leg`: no host sync,
     every frame tracked, the aligned ATE <= ATE_MAX, one M2 or M1 launch a
     frame); (c) MARCH_DIM_FRAMES frames at MARCH_DIM^3, which "auto"
-    resolves to "hier" (the gather integrate, M2); (e) the 170-degree
-    camera (`run_backward`). Returns (kernel results, {path: launches},
+    resolves to "hier" (the gather integrate, M2); (e) the cameras inside
+    the volume (`run_inside`). Returns (kernel results, {path: launches},
     {leg: record})."""
     import dataclasses
 
@@ -2230,10 +2303,103 @@ def run_marches(frames, gt, params, intr, device, tsdf, T_last, fused_poses, smi
         {"icp_normal_eqs": 19, "march_hier": 1, "march_rays": 0, "build_face": 0,
          "face_integrate": 0, "sweep_rays": 0, "resample_face": 0},
         f"4e auto at {MARCH_DIM}^3 (resolved to {mode!r}, the gather integrate)")
-    legs["backward"] = run_backward(params, intr, device, smi)
+    legs["inside"] = run_inside(params, intr, device, smi)
     print(f"  phase 4e took {time.perf_counter() - t0:.1f} s", flush=True)
-    paths = {k: v["launches"] for k, v in legs.items() if k != "backward"}
+    paths = {k: v["launches"] for k, v in legs.items() if k != "inside"}
     return res, paths, legs
+
+
+# ---- phase 4f: the bench command --------------------------------------------
+
+#: bench.py's JSON keys, no more and no fewer
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+#: the bench's slower paths, each run once in this process at BENCH_MODE_FRAMES
+BENCH_MODES = (("--integrate", "gather"), ("--raycast", "hier"), ("--raycast", "step"),
+               ("--fused", "off"))
+BENCH_MODE_FRAMES = 5
+
+
+def _bench_line(stdout: str, corner: bool, where: str) -> dict:
+    """The bench's JSON line (its last stdout line), held to bench.py's
+    keys, metric name and a finite positive value."""
+    lines = stdout.strip().splitlines()
+    row = json.loads(lines[-1]) if lines else {}
+    metric = "ms_per_frame_640x480_512^3" + ("_corner" if corner else "")
+    if set(row) != BENCH_KEYS or row["metric"] != metric or row["unit"] != "ms" \
+            or not (isinstance(row["value"], float) and math.isfinite(row["value"])
+                    and row["value"] > 0):
+        _fail(f"{where}: the JSON line {lines[-1:]} is not bench.py's ({metric}, a finite "
+              f"value > 0)")
+    return row
+
+
+def run_bench(device, ms_frame: float, c_ms: float, smi: str) -> dict:
+    """Phase 4f: `python -m kinfu_tpu_torch bench` and `bench --corner` as
+    subprocesses at their defaults (640x480, 512^3, 20 + 2 frames): each
+    must exit 0 and print bench.py's JSON line; then `bench.run` once in
+    this process over the orbit's long run with the loop under sync-debug
+    mode "error" (the fetch after it outside), which must make no sync and
+    track every frame after the first; then the bench's slower paths
+    (BENCH_MODES) in this process at BENCH_MODE_FRAMES frames. Returns
+    {"orbit", "corner": the JSON lines, modes: theirs}."""
+    import functools
+    import io
+
+    from kinfu_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    print(f"[4f] the bench command: python -m kinfu_tpu_torch bench (bench.py's workload, "
+          f"method and JSON line) and bench --corner, as subprocesses", flush=True)
+    out = {}
+    for corner in (False, True):
+        cmd = [sys.executable, "-m", "kinfu_tpu_torch", "bench"] + (["--corner"] if corner
+                                                                     else [])
+        t1 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, timeout=600)
+        print(f"    $ {' '.join(cmd[1:])}\n      exit {res.returncode} in "
+              f"{time.perf_counter() - t1:.1f} s; stdout {res.stdout.strip().splitlines()}",
+              flush=True)
+        for line in res.stderr.strip().splitlines()[-6:]:
+            print(f"      {line}", flush=True)
+        if res.returncode != 0:
+            _fail(f"bench{' --corner' if corner else ''} exited {res.returncode}:\n"
+                  f"{res.stderr[-3000:]}")
+        out["corner" if corner else "orbit"] = _bench_line(res.stdout, corner, "bench")
+    print(f"    beside: phase 4's {ms_frame:.3f} ms/frame and phase 4b's {c_ms:.3f} ms/frame "
+          f"(medians of frames 2-{ORBIT_FRAMES - 1}, CUDA events) on {smi}", flush=True)
+
+    args = bench.parse_args([])
+    params, intr, depths, colors = bench.workload(args)
+    step = bench.make_step_fn(params, intr)
+    init = functools.partial(bench.init_state, params, intr, device)
+    try:
+        poses, oks, inl, dt = bench.run(step, init, depths, colors, sync_debug="error")
+    except RuntimeError as e:
+        _fail(f"bench.run: the timed loop synchronised the host with the device: {e}")
+    print(f"    bench.run in this process over the {len(oks)} frames of the long run, the loop "
+          f"under sync-debug mode \"error\": 0 syncs, {dt:.3f} s with the fetch; tracked "
+          f"{int(oks[1:].sum())}/{len(oks) - 1} after the bootstrap", flush=True)
+    if not oks[1:].all() or not np.isfinite(poses).all():
+        _fail(f"bench.run: tracking failed at frames {np.nonzero(~oks[1:])[0] + 1}")
+    del depths, colors
+    _empty_cache(device)
+
+    for mode in BENCH_MODES:
+        argv = [*mode, "--frames", str(BENCH_MODE_FRAMES)]
+        buf, err = io.StringIO(), io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = bench.main(argv)
+        row = _bench_line(buf.getvalue(), False, f"bench {' '.join(argv)}")
+        wall = [ln for ln in err.getvalue().splitlines() if "wall s" in ln or "CUDA-event" in ln]
+        print(f"    bench {' '.join(argv)} (in this process): exit {rc} in "
+              f"{time.perf_counter() - t1:.1f} s; {json.dumps(row)}; {' | '.join(wall)}",
+              flush=True)
+        out[" ".join(mode)] = row
+        _empty_cache(device)
+    print(f"  phase 4f took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 # ---- phase 4d: the sharded step on the one card ---------------------------
@@ -2992,6 +3158,43 @@ def run_sanitizer(smi: str) -> None:
         _fail("the checked build did not trap on an output one row short: the check is not live")
 
 
+#: launches of each kernel form in phase 7b, on each grid it takes
+REPEAT_LAUNCHES = 20
+
+
+def run_repeat(smi: str) -> dict:
+    """Phase 7b: kinfu_tpu_torch/tools/sanitize.py --repeat in a child
+    process, in the normal build: every kernel form of phase 7 at the main
+    path's shapes, REPEAT_LAUNCHES launches on the same inputs with every
+    output and K1's partials filled with a sentinel before each, and as
+    many on a second grid for K1 and K3 (the stand-in for racecheck,
+    initcheck and synccheck, which refuse this card). Fails unless every
+    launch gives its form's first bits (on the second grid K3 the same
+    bits, K1 its tolerances, `sanitize.k1_close` and `k1_finish_close`), K1's ticket
+    reads 0 after each, and every kernel launched. Returns {form: record}."""
+    from kinfu_tpu_torch.tools import sanitize
+
+    r = sanitize.run_child("main", repeat=REPEAT_LAUNCHES, timeout=SANITIZE_TIMEOUT)
+    for line in r["output"].splitlines():
+        if line.startswith("  "):
+            print(f"   {line}", flush=True)
+    records = r["repeat"] or {}
+    bad = sorted(k for k, v in records.items() if not v["ok"])
+    print(f"[7b] {REPEAT_LAUNCHES} sentinel-filled launches of each of {len(records)} kernel "
+          f"forms (the normal build, 640x480 / 512^3; K1 also at {sanitize.K1_GRID2} blocks, "
+          f"K3 on a {sanitize.K3_GRID2}-block grid): rc {r['rc']}, {r['seconds']:.1f} s, "
+          f"{len(bad)} forms differ, launches {r['launches']}  [{smi}]", flush=True)
+    if r["rc"] != 0 or r["launches"] is None or not records:
+        print(r["output"][-4000:], flush=True)
+        _fail("the repeat-launch run failed")
+    if bad:
+        _fail(f"kernel forms whose repeated launches differ: {bad}")
+    for key, name, *_ in KERNELS + MARCH_KERNELS:
+        if r["launches"].get(key, 0) <= 0:
+            _fail(f"{name} was not launched in the repeat-launch run")
+    return records
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3162,6 +3365,8 @@ def main() -> None:
                                          poses[n - 1], poses, smi)
     del final_tsdf
     torch.cuda.empty_cache()
+    run_bench(device, ms_frame, c_ms, smi)
+    torch.cuda.empty_cache()
 
     print(f"[5] session: {n} frames through KinFuSession (default device)", flush=True)
     s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
@@ -3231,6 +3436,7 @@ def main() -> None:
     profile_shift(params, device)
     torch.cuda.empty_cache()
     run_sanitizer(smi)
+    run_repeat(smi)
 
     paths = {"orbit": launches, "session": s_launches, "cli_session": cli_launches,
              "non_fused": nf_launches, "relocalize_step": reloc_launches,

@@ -49,6 +49,7 @@ SECONDS = {
     "test_torch_sharded_kernels.py": 57,
     "test_pipeline.py": 51,
     "test_torch_sharded_step.py": 39,
+    "test_torch_bench.py": 59,
     "test_session.py": 38,
     "test_torch_tools.py": 38,
     "test_pallas_icp.py": 35,
@@ -59,14 +60,14 @@ SECONDS = {
     "test_frontend.py": 21,
     "test_tilegather.py": 19,
     "test_volume.py": 19,
-    "test_torch_sanitizers.py": 17,
+    "test_torch_sanitizers.py": 35,
     "test_torch_foundations.py": 16,
     "test_datasets.py": 12,
     "test_icp.py": 12,
     "test_viz3d.py": 11,
     "test_golden_trajectory.py": 9,
     "test_torch_facewarp.py": 7,
-    "test_torch_integrate_paths.py": 4,
+    "test_torch_integrate_paths.py": 16,
     "test_se3.py": 3,
     "test_intrinsics.py": 2,
     "test_io.py": 1,

@@ -7,8 +7,8 @@ Commands:
   eval   ATE/RPE of an estimated trajectory against ground truth
   sweep  replica-parallel eval sweep: sequences x configs over `--devices`
          ranks (parallel/sweep.py), one JSON line per (sequence, config)
-  bench  per-frame latency benchmark (raises: the port's benchmark belongs
-         to the change that writes BENCHMARK.json)
+  bench  end-to-end per-frame latency benchmark (bench.py's workload, method
+         and JSON line; kinfu_tpu_torch/bench.py, which takes its flags)
 
 `run` drives `KinFuSession` on `--device`: on the card the fused step on
 the CUDA kernels, on the CPU the same step on the kernels' plain versions
@@ -294,9 +294,9 @@ def cmd_sweep(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "the bench command is not ported: the port's benchmark belongs to the change "
-        "that writes BENCHMARK.json (ROADMAP.md)")
+    from kinfu_tpu_torch import bench
+
+    return bench.main(args.rest)
 
 
 def main(argv=None) -> int:
@@ -364,11 +364,16 @@ def main(argv=None) -> int:
     _add_params_flags(sp)
     sp.set_defaults(fn=cmd_sweep)
 
-    bp = sub.add_parser("bench", help="per-frame latency benchmark (not ported: raises)")
-    bp.add_argument("rest", nargs=argparse.REMAINDER)
+    # bench's flags are kinfu_tpu_torch/bench.py's, passed through whole
+    bp = sub.add_parser("bench", help="per-frame latency benchmark (kinfu_tpu_torch/bench.py)",
+                        add_help=False)
     bp.set_defaults(fn=cmd_bench)
 
-    args = ap.parse_args(argv)
+    args, rest = ap.parse_known_args(argv)
+    if args.cmd == "bench":
+        args.rest = rest
+    elif rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)
 
 

@@ -357,12 +357,15 @@ face_integrate_kernel(short* __restrict__ tsdf, short* __restrict__ weight,
 
 }  // namespace
 
-// lens: the seven arrays' lengths in elements, in argument order (int64)
+// blocks: the persistent grid's size, or 0 for as many blocks as the SMs
+// hold at once (the rows are grid-strided, so any size writes the same
+// bits); lens: the seven arrays' lengths in elements, in argument order
+// (int64)
 extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const void* frange,
                                     const void* fcolor, const void* prm, const void* table,
                                     int nZ, int nY, int nX, int ax0, int ax1, int ax2,
                                     int flip, int gt_x, int gt_y, int F, int stack_rows,
-                                    const void* lens, void* stream) {
+                                    int blocks, const void* lens, void* stream) {
   const long long* n = static_cast<const long long*>(lens);
   const Lens L{n[0], n[1], n[2], n[3], n[4], n[5], n[6]};
   const bool x_sweeps = ax0 == 2 && ((ax1 == 0 && ax2 == 1) || (ax1 == 1 && ax2 == 0));
@@ -371,7 +374,9 @@ extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const
   }
   const int dims[3] = {nZ, nY, nX};
   const int n_slabs = x_sweeps ? (nX + 31) / 32 : dims[ax0];
-  if (n_slabs < 1 || n_slabs > kMaxSlabs) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_slabs < 1 || n_slabs > kMaxSlabs || blocks < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = static_cast<size_t>(n_slabs) * (sizeof(int4) + sizeof(unsigned));
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -383,7 +388,7 @@ extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const
                                                         kThreads, smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  face_integrate_kernel<<<max(sms * per_sm, 1), kThreads, smem,
+  face_integrate_kernel<<<blocks > 0 ? blocks : max(sms * per_sm, 1), kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<short*>(tsdf), static_cast<short*>(weight), static_cast<int*>(color),
       static_cast<const short*>(frange), static_cast<const int*>(fcolor),

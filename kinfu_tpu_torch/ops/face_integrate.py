@@ -328,9 +328,11 @@ def sweep_face_plain(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor
 
 def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
                face_color: torch.Tensor, prm: torch.Tensor,
-               table: torch.Tensor) -> None:
+               table: torch.Tensor, blocks: int = 0) -> None:
     """K3: one face's fusion sweep, in place. CPU tensors take the plain
-    version; CUDA tensors launch csrc/face_integrate.cu."""
+    version; CUDA tensors launch csrc/face_integrate.cu on a persistent
+    grid of `blocks` blocks (0: as many as the SMs hold at once). Every
+    grid size writes the same bits: one warp owns each row it updates."""
     if vol.tsdf.device.type == "cpu":
         sweep_face_plain(vol, frame, face_range, face_color, prm, table)
         return
@@ -352,7 +354,7 @@ def sweep_face(vol: TSDFVolume, frame: FaceFrame, face_range: torch.Tensor,
         kernels.ptr(face_range), kernels.ptr(face_color), kernels.ptr(prm),
         kernels.ptr(table),
         Z, Y, X, *frame.axes, int(frame.flip), int(frame.gt_x), int(frame.gt_y),
-        face_range.shape[1], face_range.shape[0],
+        face_range.shape[1], face_range.shape[0], int(blocks),
         kernels.lengths(vol.tsdf, vol.weight, vol.color, face_range, face_color, prm, table),
     )
 

@@ -79,8 +79,13 @@ def _get_scratch(dev: torch.device) -> Tuple[torch.Tensor, ...]:
     return scratch
 
 
-def _blocks(rows: int, w: int) -> int:
-    return max(1, min(_MAX_BLOCKS, (rows * w + _THREADS - 1) // _THREADS))
+def _blocks(rows: int, w: int, max_blocks: int) -> int:
+    return max(1, min(max_blocks, (rows * w + _THREADS - 1) // _THREADS))
+
+
+def _check_max_blocks(max_blocks: int) -> None:
+    if not 1 <= max_blocks <= _MAX_BLOCKS:
+        raise ValueError(f"icp_normal_eqs: max_blocks={max_blocks} outside [1, {_MAX_BLOCKS}]")
 
 
 def gates(dist_thres: float, sin_angle_thres: float) -> Tuple[float, float]:
@@ -185,13 +190,17 @@ def icp_normal_eqs_warped(
     intr: Intrinsics,
     dist_thres: float,
     sin_angle_thres: float,
+    max_blocks: int = _MAX_BLOCKS,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: (A [6,6], b [6], inliers) of one iteration. CPU tensors take the
-    plain version; CUDA tensors launch csrc/icp_normal_eqs.cu."""
+    plain version; CUDA tensors launch csrc/icp_normal_eqs.cu on at most
+    `max_blocks` blocks (a smaller grid sums in another order: the same
+    count, A and b to rounding)."""
     if cur_vmap.device.type == "cpu":
         return icp_normal_eqs_warped_plain(inc, cur_vmap, cur_nmap, pre_vmap, pre_nmap,
                                            intr, dist_thres, sin_angle_thres)
     kernels.library()
+    _check_max_blocks(max_blocks)
     R, t = inc[0].contiguous(), inc[1].contiguous()
     h, w, _ = pre_vmap.shape
     hc = cur_vmap.shape[0]
@@ -213,7 +222,7 @@ def icp_normal_eqs_warped(
         kernels.ptr(partial_n), kernels.ptr(ticket), kernels.ptr(A), kernels.ptr(b),
         kernels.ptr(ninl),
         float(intr.fx), float(intr.fy), float(intr.cx), float(intr.cy), dist2, sin2,
-        hc, h, w, _blocks(hc, w), _THREADS,
+        hc, h, w, _blocks(hc, w, max_blocks), _THREADS,
         kernels.lengths(R, t, cur_vmap, cur_nmap, pre_vmap, pre_nmap, partial_g, partial_n,
                         ticket, A, b, ninl),
     )
@@ -244,6 +253,7 @@ def icp_solve_warped(
     sin_angle_thres: float,
     start: Optional[torch.Tensor] = None,
     system: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    max_blocks: int = _MAX_BLOCKS,
 ) -> torch.Tensor:
     """K1's finishing form over a whole coarse-to-fine ICP, one host call:
     `levels` lists (cur vertex, cur normal, model vertex, model normal,
@@ -251,9 +261,11 @@ def icp_solve_warped(
     first iteration starts from the state block `start` (default: the
     identity and ok); the result is the state block after the last
     iteration (`unpack_state`). `system`, when given, receives the last
-    iteration's (A, b, inliers). CUDA tensors only: the plain version is
+    iteration's (A, b, inliers). A launch takes at most `max_blocks`
+    blocks. CUDA tensors only: the plain version is
     `tracking/icp.py::rigid_icp_plain`."""
     kernels.library()
+    _check_max_blocks(max_blocks)
     dev = levels[0][0].device
     maps, intr, dims, iters = [], [], [], []
     for cv, cn, pv, pn, lintr, n in levels:
@@ -283,7 +295,7 @@ def icp_solve_warped(
         kernels.host_array(ctypes.c_int, dims), kernels.host_array(ctypes.c_int, iters),
         kernels.ptr(start) if start is not None else None, kernels.ptr(state),
         kernels.ptr(partial_g), kernels.ptr(partial_n), kernels.ptr(ticket),
-        kernels.ptr(A), kernels.ptr(b), kernels.ptr(ninl), dist2, sin2, _MAX_BLOCKS,
+        kernels.ptr(A), kernels.ptr(b), kernels.ptr(ninl), dist2, sin2, max_blocks,
         _THREADS, kernels.lengths(*maps, start, state, partial_g, partial_n, ticket, A, b, ninl),
         key="icp_normal_eqs", count=sum(iters),
     )

@@ -58,7 +58,7 @@ _F = ctypes.c_float
 #: stream are c_void_p, float arguments c_float)
 _SIGNATURES = {
     "kinfu_build_faces": [_P] * 6 + [_I] * 4 + [_P] * 2,
-    "kinfu_face_integrate": [_P] * 7 + [_I] * 11 + [_P] * 2,
+    "kinfu_face_integrate": [_P] * 7 + [_I] * 12 + [_P] * 2,
     "kinfu_sweep_rays": [_P] * 4 + [_I] * 12 + [_P] * 2,
     "kinfu_resample_face": [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P] * 2,
     "kinfu_icp_normal_eqs": [_P] * 12 + [_F] * 6 + [_I] * 5 + [_P] * 2,

@@ -43,6 +43,33 @@ def parity_stats(vm_w, nm_w, vm_r, nm_r) -> dict:
             "nang_med_deg": float(np.median(nang)) if nang.size else float("nan")}
 
 
+def face_counts(weight, normal, cam2vol, intr, params) -> dict:
+    """{face name: (fused voxels, hit pixels)} by the cube face that owns
+    their direction from the camera: the voxels of `weight` [Z, Y, X] > 0
+    (at iota * voxel size, as the gather integrate places them) and the
+    pixels whose camera-frame `normal` [H, W, 3] is non-zero. A face owns
+    a direction whose component along its axis is the largest; a face with
+    a count above 0 was live in that pass."""
+    from kinfu_tpu_torch.ops.facewarp import face_frames
+
+    R, t = cam2vol
+    dev = weight.device
+    frames = face_frames()
+    axes = torch.as_tensor(np.stack([f.D[2] for f in frames]), dtype=torch.float32, device=dev)
+    vs = torch.as_tensor(params.voxel_size, dtype=torch.float32, device=dev)
+    zyx = torch.nonzero(weight > 0)
+    owner_v = ((zyx.flip(-1).float() * vs - t) @ axes.T).argmax(-1)
+    v, u = torch.meshgrid(torch.arange(intr.height, device=dev, dtype=torch.float32),
+                          torch.arange(intr.width, device=dev, dtype=torch.float32),
+                          indexing="ij")
+    d_cam = torch.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy,
+                         torch.ones_like(u)], dim=-1)
+    owner_p = ((d_cam @ R.T) @ axes.T).argmax(-1)[(normal != 0).any(-1)]
+    vox = torch.bincount(owner_v, minlength=len(frames)).tolist()
+    pix = torch.bincount(owner_p, minlength=len(frames)).tolist()
+    return {f.name: (vox[k], pix[k]) for k, f in enumerate(frames)}
+
+
 def raycasts(vol, cam2vol, intr, params):
     """(sweep maps, march maps): `raycast_warped` with its face flags and
     the "step" raycast, each (vertex, normal) as numpy arrays."""

@@ -1,40 +1,64 @@
 """The port's sanitizer pass, the counterpart of tests/test_sanitizers.py.
 
-Two parts:
+Three parts:
 
 (a) On the card: every form of the five CUDA kernels (K1-K5) and of the
     march kernels (M1, M2) runs in the bounds-checked build of csrc/
     (`-DKINFU_CHECKED -lineinfo`, csrc/checked.cuh), in which every global
     load and store of a kernel traps on an index outside the array that
     the wrapper passed, and the launch then fails at the next
-    synchronisation. The array lengths are
-    the tensors' numel, so an overrun is caught even where it would land
-    inside another tensor of PyTorch's caching allocator.
-    compute-sanitizer exists on the card's machine but refuses the device
-    ("Device not supported"), so racecheck (shared-memory races), initcheck
-    (reads of uninitialised memory) and synccheck are not run.
+    synchronisation. The array lengths are the tensors' numel, so an
+    overrun is caught even where it would land inside another tensor of
+    PyTorch's caching allocator.
 
         python -m kinfu_tpu_torch.tools.sanitize --scale main|test
         python -m kinfu_tpu_torch.tools.sanitize --negative
 
     `--scale main` uses the main path's shapes (640x480, 512^3, a 3-level
-    pyramid), `--scale test` 160x120 and 128^3 (2 levels). The run launches,
-    each followed by a synchronisation: K1's one-iteration form at every
-    level, its finishing form through one `rigid_icp` host call and its
-    row-shard form on the 4 row shards of level 0 (120 rows at main); K2's
-    six-face launch with every gate on and with the step's gates; K3 on
-    each face, on a gated-off face whose stack K2 left unwritten, and on an
-    interior Z slab and Y slab (the Y slab's +-x faces in the (2, 1, 0)
-    frame); K4 on each face and on the halo-padded Z and Y slabs; K5's
-    six-face composite; M1 on the volume and in its Z-slab form, and M2;
-    all on the volume and model maps of 3 frames of the fused orbit and on
-    frame 3; then the corner orbit up to its first frame with two live
-    faces. It prints each kernel's launches
-    (`ops/kernels.py`'s counts) on its last line as `launches {json}`. `--negative` calls K5's C entry directly with a
-    vertex buffer one row short, which must trap; a run that ends without
-    a fault prints "negative: no fault" and exits 0.
-    `run_child` runs either as a subprocess and parses its output; it needs
-    the checked build made (`ops/kernels.py::timed_build` makes both).
+    pyramid), `--scale test` 160x120 and 128^3 (2 levels). The forms
+    (`all_forms`), each launch followed by a synchronisation: K1's
+    one-iteration form at every level, its finishing form (one
+    `icp_solve_warped` call) and its row-shard form on the 4 row shards of
+    level 0 (120 rows at main); K2's six-face launch with every gate on and
+    with the step's gates; K3 on each face, on a gated-off face whose stack
+    K2 left unwritten, and on an interior Z slab and Y slab (the Y slab's
+    +-x faces in the (2, 1, 0) frame); K4 on each face and on the
+    halo-padded Z and Y slabs; K5's six-face composite; M1 on the volume
+    and in its Z-slab form, and M2; all on the volume and model maps of 3
+    frames of the fused orbit and on frame 3. Then the corner orbit up to
+    its first frame with two live faces. It prints each kernel's launches
+    (`ops/kernels.py`'s counts) on its last line as `launches {json}`.
+    `--negative` calls K5's C entry directly with a vertex buffer one row
+    short, which must trap; a run that ends without a fault prints
+    "negative: no fault" and exits 0.
+
+(a') On the card, in the normal build: the stand-in for compute-sanitizer's
+    racecheck (shared-memory races), initcheck (reads of uninitialised
+    memory) and synccheck, which refuse the device ("Device not
+    supported").
+
+        python -m kinfu_tpu_torch.tools.sanitize --repeat 20 [--scale main]
+
+    Each form of (a) launches N times on the same inputs; before each
+    launch every output it allocates (`sentinel_outputs`) and K1's partial
+    sums and counts are filled with the next of four sentinel bytes, and
+    every launch must give the first launch's bits. K1's ticket cannot
+    take a sentinel (each launch's last block resets it to 0 for the
+    next), so it must read 0 after each launch. K3 updates its volume in
+    place: each launch starts from the same volume. K1 (every form) and K3
+    launch N times more on a second grid (K1_GRID2 blocks at most, a
+    K3_GRID2-block persistent grid): K3 must give the same bits; K1, whose
+    block partition orders its sums, one iteration's counts and floats
+    within K1_TOL of their largest entry (`k1_close`), and the finishing
+    form, whose 19 iterations carry the order's rounding into the pose and
+    the later counts, the rule of K1's row shards (`k1_finish_close`). A
+    race that a launch's timing decides,
+    a read of an output before it is written, or an output element left
+    unwritten shows as other bits. The second-to-last line is
+    `repeat {json}`, a record per form.
+
+    `run_child` runs any of these as a subprocess and parses its output;
+    it needs the builds made (`ops/kernels.py::timed_build` makes both).
 
 (b) On the CPU: `IndexChecks`, a TorchDispatchMode that does what
     `checkify`'s index and division checks do for the JAX step: every
@@ -46,6 +70,8 @@ Two parts:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -53,6 +79,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -185,9 +212,33 @@ def padded_slab(tsdf, sd: int, rank: int, ranks: int, halo: int):
     return torch.cat(parts, dim=sd).contiguous()
 
 
-def launch_icp(state, depth, params, intr) -> None:
+@dataclasses.dataclass
+class Form:
+    """One launch form of a kernel. `launch(grid)` launches it once and
+    returns the tensors it writes; `grid` None is the wrapper's own grid,
+    else `grid2`, the second grid size the entry point takes (K1: the most
+    blocks of a launch; K3: its persistent grid)."""
+
+    name: str
+    launch: Callable
+    grid2: Optional[int] = None
+    #: cached buffers the launch writes besides its outputs (K1's partial
+    #: sums and counts), filled with the sentinel before each launch
+    scratch: tuple = ()
+    #: cached buffers that must read 0 after each launch (K1's ticket,
+    #: which a sentinel would corrupt: each launch's last block resets it)
+    zero: tuple = ()
+    #: on the second grid, `tol(first, second)` -> (ok, what it found)
+    #: holds the outputs to K1's tolerance (its block partition orders its
+    #: sums); None: the same bits
+    tol: Optional[Callable] = None
+
+
+def icp_forms(state, depth, params, intr):
     """K1: the one-iteration form at every level, the finishing form (one
-    rigid_icp host call) and the row-shard form on the level-0 row shards."""
+    `icp_solve_warped` call; on the CPU, rigid_icp's plain loop) and the
+    row-shard form on the level-0 row shards. K1's ticket must read 0
+    after each launch: its last block resets it."""
     from kinfu_tpu_torch.frontend.maps import build_measurement_pyramid
     from kinfu_tpu_torch.geometry.se3 import Pose, rodrigues
     from kinfu_tpu_torch.ops import icp_warped as iw
@@ -205,24 +256,55 @@ def launch_icp(state, depth, params, intr) -> None:
     inc = Pose(rodrigues(torch.tensor([0.002, -0.004, 0.001], device=dev)),
                torch.tensor([0.004, -0.002, 0.003], device=dev))
     mv, mn = state.model_vmaps, state.model_nmaps
+    # the plain versions on the CPU have no grid, scratch or ticket
+    grid2, scratch, zero = None, (), ()
+    if dev.type == "cuda":
+        partial_g, partial_n, ticket = iw._get_scratch(dev)[:3]
+        grid2, scratch, zero = K1_GRID2, (partial_g, partial_n), (ticket,)
+
+    def one(cv, cn, li, level):
+        def launch(grid):
+            kw = {} if grid is None else {"max_blocks": grid}
+            return iw.icp_normal_eqs_warped(inc, cv, cn, mv[level], mn[level], li,
+                                            p.icp_dist_threshold, sin_t, **kw)
+        return launch
+
     for level in range(p.pyramid_height):
-        iw.icp_normal_eqs_warped(inc, cvs[level], cns[level], mv[level], mn[level],
-                                 intr.level(level), p.icp_dist_threshold, sin_t)
-        _sync(f"K1 one-iteration form, level {level} ({cvs[level].shape[0]} rows)")
-    ticp.rigid_icp(cvs, cns, mv, mn, intr, p)
-    _sync(f"K1 finishing form, one rigid_icp call ({sum(p.icp_iters)} launches)")
+        yield Form(f"K1 one-iteration form, level {level} ({cvs[level].shape[0]} rows)",
+                   one(cvs[level], cns[level], intr.level(level), level), grid2, scratch,
+                   zero, tol=k1_close)
+    levels = [(cvs[lv], cns[lv], mv[lv], mn[lv], intr.level(lv), n)
+              for lv, n in p.level_iters_coarse_to_fine() if n > 0]
+
+    def finish(grid):
+        if dev.type == "cpu":
+            res = ticp.rigid_icp(cvs, cns, mv, mn, intr, p)
+            return (*res.pose, res.ok, res.num_inliers)
+        system = (torch.empty((6, 6), dtype=torch.float32, device=dev),
+                  torch.empty((6,), dtype=torch.float32, device=dev),
+                  torch.empty((), dtype=torch.int32, device=dev))
+        kw = {} if grid is None else {"max_blocks": grid}
+        st = iw.icp_solve_warped(levels, p.icp_dist_threshold, sin_t, system=system, **kw)
+        # the pose and ok, and the count; the block's 2 spare words are
+        # never written
+        return (st[:13], st[13:14].view(torch.int32), *system)
+
+    yield Form(f"K1 finishing form, one icp_solve_warped call ({sum(p.icp_iters)} launches)",
+               finish, grid2, scratch, zero, tol=k1_finish_close)
     for r in range(RANKS):
         mesh = Mesh(world=RANKS, rank=r, device=dev, backend="gloo")
         cv, cn = row_shard(cvs[0], mesh), row_shard(cns[0], mesh)
-        iw.icp_normal_eqs_warped(inc, cv, cn, mv[0], mn[0], intr, p.icp_dist_threshold, sin_t)
-        _sync(f"K1 row-shard form, shard {r} of level 0 ({cv.shape[0]} rows)")
+        yield Form(f"K1 row-shard form, shard {r} of level 0 ({cv.shape[0]} rows)",
+                   one(cv, cn, intr, 0), grid2, scratch, zero, tol=k1_close)
 
 
-def launch_faces(vol, frame, T, params, intr) -> None:
-    """K2 with every gate on and with the step's gates; K3 on each face
-    (every gate on), on a gated-off face of the step's gates, and on an
-    interior Z and Y slab; K4 on each face and on the halo-padded Z and Y
-    slabs; K5's six-face composite. `vol` is updated in place."""
+def face_forms(vol, frame, T, params, intr):
+    """K2 with every gate on and with the step's gates (the outputs of the
+    gated faces); K3 on each face (every gate on), on a gated-off face of
+    the step's gates, and on an interior Z and Y slab; K4 on each face and
+    on the halo-padded Z and Y slabs; K5's six-face composite. K3 updates
+    its volume in place: each of its launches starts from the volume it
+    was given."""
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
     from kinfu_tpu_torch.ops import face_integrate as fi
     from kinfu_tpu_torch.ops import face_raycast as fr
@@ -243,41 +325,60 @@ def launch_faces(vol, frame, T, params, intr) -> None:
     rspec = fr.RaySpec(int(size), float(focal))
     vs = params.voxel_size
     on = torch.ones((), dtype=torch.bool, device=dev)
+    grid2 = K3_GRID2 if dev.type == "cuda" else None
 
-    def stacks(v2c, dims_xyz, frames, gates):
+    def face_prm(v2c, dims_xyz, frames, gates):
         geo = [fw.face_geometry(v2c, f, dims_xyz, vs) for f in frames]
-        prm6 = torch.stack([fw.face_params(A, intr, gates[k], fspec)
-                            for k, (A, _) in enumerate(geo)])
-        return geo, prm6, fw.build_faces(depth_m, col_packed, prm6, fspec)
+        return geo, torch.stack([fw.face_params(A, intr, gates[k], fspec)
+                                 for k, (A, _) in enumerate(geo)])
 
-    def sweep(v, f, frm, geo, prm6, built, gate):
+    def k2(prm6, faces):
+        def launch(grid):
+            rk, ck, r_max = fw.build_faces(depth_m, col_packed, prm6, fspec)
+            return rk[faces], ck[faces], r_max
+        return launch
+
+    def k3(v, f, frm, geo, prm6, built, gate):
         rk, ck, mk = built
         prm3 = fi.sweep_params(geo[f][1], fw.primed_voxel_size(frm, vs), fspec, params,
                                mk[f].float(), gate, prm6[f], intr)
-        dims_p = tuple(v.tsdf.shape[a] for a in frm.axes)
-        fi.sweep_face(v, frm, rk[f], ck[f], prm3, fi.plane_table(fspec, prm3, dims_p))
+        table = fi.plane_table(fspec, prm3, tuple(v.tsdf.shape[a] for a in frm.axes))
+        start = tuple(a.clone() for a in v)
+
+        def launch(grid):
+            for a, s in zip(v, start):
+                a.copy_(s)
+            fi.sweep_face(v, frm, rk[f], ck[f], prm3, table, blocks=grid or 0)
+            return tuple(v)
+        return launch
 
     frames = fw.face_frames()
     dims_xyz = tuple(reversed(vol.tsdf.shape))
+    every = list(range(fw.FACES))
     all_on = torch.ones(fw.FACES, dtype=torch.bool, device=dev)
-    geo, prm6, built = stacks(vol2cam, dims_xyz, frames, all_on)
-    _sync("K2 six-face launch, every gate on")
+    geo, prm6 = face_prm(vol2cam, dims_xyz, frames, all_on)
+    yield Form("K2 six-face launch, every gate on", k2(prm6, every))
+    built = fw.build_faces(depth_m, col_packed, prm6, fspec)
     step_gates = fi.faces_needed(vol2cam, intr)
-    geo_g, prm6_g, built_g = stacks(vol2cam, dims_xyz, frames, step_gates)
-    _sync(f"K2 six-face launch, the step's gates {step_gates.int().tolist()}")
-    for f, frm in enumerate(frames):
-        sweep(vol, f, frm, geo, prm6, built, on)
-        _sync(f"K3 face {frm.name}")
-    off = [f for f in range(fw.FACES) if not bool(step_gates[f])]
+    gated = [f for f, g in enumerate(step_gates.tolist()) if g]
+    off = [f for f in every if f not in gated]
     if not off:
         raise RuntimeError("no face is gated off by the step's gates")
-    sweep(vol, off[0], frames[off[0]], geo_g, prm6_g, built_g, step_gates[off[0]])
-    _sync(f"K3 gated-off face {frames[off[0]].name}, its stack unwritten by K2")
+    geo_g, prm6_g = face_prm(vol2cam, dims_xyz, frames, step_gates)
+    yield Form(f"K2 six-face launch, the step's gates {step_gates.int().tolist()}",
+               k2(prm6_g, gated))
+    built_g = fw.build_faces(depth_m, col_packed, prm6_g, fspec)
+    for f, frm in enumerate(frames):
+        yield Form(f"K3 face {frm.name}", k3(vol, f, frm, geo, prm6, built, on), grid2)
+    yield Form(f"K3 gated-off face {frames[off[0]].name}, its stack unwritten by K2",
+               k3(vol, off[0], frames[off[0]], geo_g, prm6_g, built_g, step_gates[off[0]]),
+               grid2)
 
     for f, frm in enumerate(frames):
         D, offs, vs_p = fr.prime_geometry(frm, params, dev)
-        fr.sweep_rays(vol.tsdf, frm, fr.ray_params(D @ cam2vol.t + offs, vs_p, rspec, on), rspec)
-        _sync(f"K4 face {frm.name}")
+        prm4 = fr.ray_params(D @ cam2vol.t + offs, vs_p, rspec, on)
+        yield Form(f"K4 face {frm.name}",
+                   lambda grid, frm=frm, prm4=prm4: fr.sweep_rays(vol.tsdf, frm, prm4, rspec))
 
     for sd in (0, 1):
         frames_sd = fw.face_frames(sd)
@@ -286,28 +387,28 @@ def launch_faces(vol, frame, T, params, intr) -> None:
         off0 = r * Ll
         slab = TSDFVolume(*(a.narrow(sd, off0, Ll).contiguous() for a in vol))
         v2c = fold_shard_origin(vol2cam, off0, sd, vs)
-        geo_s, prm6_s, built_s = stacks(v2c, tuple(reversed(slab.tsdf.shape)), frames_sd,
-                                        all_on)
+        geo_s, prm6_s = face_prm(v2c, tuple(reversed(slab.tsdf.shape)), frames_sd, all_on)
+        built_s = fw.build_faces(depth_m, col_packed, prm6_s, fspec)
         prm5 = fr.composite_params(cam2vol, params, sd)
         padded = padded_slab(vol.tsdf, sd, r, RANKS, HALO8)
         for f, frm in enumerate(frames_sd):
-            sweep(slab, f, frm, geo_s, prm6_s, built_s, on)
-            _sync(f"K3 {'ZY'[sd]} slab {r} face {frm.name} {frm.axes}")
+            yield Form(f"K3 {'ZY'[sd]} slab {r} face {frm.name} {frm.axes}",
+                       k3(slab, f, frm, geo_s, prm6_s, built_s, on), grid2)
             sh = ray_shard(frm, padded.shape, L, Ll, off0, sd)
             prm4 = fr.ray_params(prm5[f, 9:12], fw.primed_voxel_size(frm, vs), rspec, on)
-            fr.sweep_rays(padded, frm, prm4, rspec, sh)
-            _sync(f"K4 {'ZY'[sd]} slab {r} padded by {HALO8} face {frm.name} {tuple(sh)}")
+            yield Form(f"K4 {'ZY'[sd]} slab {r} padded by {HALO8} face {frm.name} {tuple(sh)}",
+                       lambda grid, frm=frm, prm4=prm4, sh=sh:
+                       fr.sweep_rays(padded, frm, prm4, rspec, sh))
 
     prm = fr.composite_params(cam2vol, params)
-    gates = fi.faces_needed(vol2cam, intr)
-    fields = [fr.sweep_and_shade(vol.tsdf, frm, prm[k, 9:12], params, rspec, gates[k])
+    fields = [fr.sweep_and_shade(vol.tsdf, frm, prm[k, 9:12], params, rspec, step_gates[k])
               for k, frm in enumerate(frames)]
-    fr.resample_composite([t for t, _ in fields], [n for _, n in fields], prm, gates, intr,
-                          rspec)
-    _sync(f"K5 six-face composite, gates {gates.int().tolist()}")
+    yield Form(f"K5 six-face composite, gates {step_gates.int().tolist()}",
+               lambda grid: fr.resample_composite([t for t, _ in fields], [n for _, n in fields],
+                                                  prm, step_gates, intr, rspec))
 
 
-def launch_marches(tsdf, T, params, intr) -> None:
+def march_forms(tsdf, T, params, intr):
     """M1 on the whole volume and in its Z-slab form (the interior slab 1
     of RANKS, padded with the march's HALO rows, its per-ray k_start and
     t_end), and M2, from the camera pose T (world from camera)."""
@@ -323,18 +424,20 @@ def launch_marches(tsdf, T, params, intr) -> None:
     vs = params.voxel_size
     dims = tuple(tsdf.shape)
     bound = rc.march_steps_bound(dims, vs, step)
-    rc.march_rays(tsdf, dims, 0, org, dirs, ts, tfar, step, inv_vs, max_steps=bound)
-    _sync("M1 march_rays, the whole volume")
-    rc.march_hier_rays(tsdf, rc.build_occupancy(tsdf), org, dirs, ts, tfar, step, inv_vs)
-    _sync("M2 march_hier")
+    yield Form("M1 march_rays, the whole volume",
+               lambda grid: rc.march_rays(tsdf, dims, 0, org, dirs, ts, tfar, step, inv_vs,
+                                          max_steps=bound))
+    occ = rc.build_occupancy(tsdf)
+    yield Form("M2 march_hier", lambda grid: rc.march_hier_rays(tsdf, occ, org, dirs, ts, tfar,
+                                                                step, inv_vs))
     Zl, r = dims[0] // RANKS, 1
     padded = padded_slab(tsdf, 0, r, RANKS, HALO)
     z_lo = float(np.float32(r * Zl) * np.float32(vs[2]))
     z_hi = float(np.float32((r + 1) * Zl) * np.float32(vs[2]))
     k_lo, t_hi = _local_t_interval(org[2], dirs[..., 2], z_lo, z_hi, ts, tfar, step)
-    rc.march_rays(padded, dims, r * Zl - HALO, org, dirs, ts, t_hi, step, inv_vs, k_start=k_lo,
-                  max_steps=bound)
-    _sync(f"M1 march_rays, Z slab {r} padded by {HALO}")
+    yield Form(f"M1 march_rays, Z slab {r} padded by {HALO}",
+               lambda grid: rc.march_rays(padded, dims, r * Zl - HALO, org, dirs, ts, t_hi,
+                                          step, inv_vs, k_start=k_lo, max_steps=bound))
 
 
 def launch_corner(params, intr, device) -> None:
@@ -361,8 +464,10 @@ def launch_corner(params, intr, device) -> None:
     raise RuntimeError(f"no frame of {CORNER_FRAMES} of the corner orbit gated two faces")
 
 
-def launch_all(scale: str, device) -> None:
-    """Every kernel form of (a) at `scale`."""
+def orbit_state(scale: str, device):
+    """(params, intr, state, frame 3, T3) of `scale`: the state after 3
+    frames of the fused orbit, whose volume and model maps, with frame 3
+    and its pose T3, are the forms' input."""
     from kinfu_tpu_torch.data.synthetic import default_test_scene, make_orbit_trajectory
     from kinfu_tpu_torch.pipeline.kinfu import init_state, kinfu_step
 
@@ -371,18 +476,165 @@ def launch_all(scale: str, device) -> None:
          f"{params.pyramid_height} levels")
     traj = make_orbit_trajectory(4, angle_step_deg=0.3)
     frames = _dev_frames([default_test_scene().render_frame(T, intr) for T in traj], device)
-    # 3 frames of the fused orbit: their volume and model maps, and frame
-    # 3, are the forms' input
     state = init_state(params, intr, device=device)
     for d, c in frames[:3]:
         state, _ = kinfu_step(state, d, c, params, intr)
     _sync("3 frames of the fused orbit")
-    launch_icp(state, frames[3][0], params, intr)
-    T3 = np.linalg.inv(traj[0]) @ traj[3]
-    launch_faces(state.vol, frames[3], T3, params, intr)
-    launch_marches(state.vol.tsdf, T3, params, intr)
-    del state
+    return params, intr, state, frames[3], np.linalg.inv(traj[0]) @ traj[3]
+
+
+def all_forms(state, frame, T, params, intr):
+    """Every launch form of K1-K5, M1 and M2 on the state's volume and
+    model maps and on `frame` at pose T."""
+    yield from icp_forms(state, frame[0], params, intr)
+    yield from face_forms(state.vol, frame, T, params, intr)
+    yield from march_forms(state.vol.tsdf, T, params, intr)
+
+
+def launch_all(scale: str, device) -> None:
+    """Every kernel form of (a) at `scale`, each launch followed by a
+    synchronisation; then the corner orbit."""
+    params, intr, state, frame, T3 = orbit_state(scale, device)
+    for form in all_forms(state, frame, T3, params, intr):
+        form.launch(None)
+        _sync(form.name)
+    del state, form
     launch_corner(params, intr, device)
+
+
+# ---- (a') repeated launches with sentinel-filled outputs ----------------------
+
+#: the bytes that fill every output and scratch buffer before a launch, in
+#: turn: float NaN and int -1; two mixed patterns; a float near its maximum
+SENTINELS = (0xFF, 0xA5, 0x5A, 0x7F)
+#: the second grid sizes: K1's most blocks a launch (of 528) and K3's
+#: persistent grid (the card's SMs hold 132 x its blocks a SM)
+K1_GRID2 = 131
+K3_GRID2 = 61
+#: K1 on another grid, one iteration: the same counts, floats within this
+#: share of their largest entry (chip_smoke.py phase 3's rule for K1)
+K1_TOL = 1e-4
+#: K1's finishing form on another grid: each of its iterations sums in
+#: another order, and the pose carries the gap into the next iteration's
+#: gates and counts, so it takes the rule of K1's row shards, whose sums
+#: are ordered otherwise too (chip_smoke.py phase 4d: SHARD_POSE_TOL and
+#: SHARD_INLIER_SHARE): the pose within this, the ok flag equal and
+K1_FINISH_POSE_TOL = 1e-6
+#: the inlier counts within this share
+K1_FINISH_INLIER_SHARE = 1e-4
+#: the last line of a repeat run
+REPEAT_TAG = "repeat "
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of `t`: a view of them where `t` is contiguous."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+@contextlib.contextmanager
+def sentinel_outputs(byte: int):
+    """Within it, `torch.empty` and `torch.empty_like`, with which the
+    kernels' wrappers allocate their outputs, fill what they allocate with
+    `byte`: an output element a launch leaves unwritten, or reads before
+    it writes it, then shows in its bits."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def fill(t):
+        _bits(t).fill_(byte)
+        return t
+
+    torch.empty = lambda *a, **k: fill(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: fill(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| as a share of a's largest entry."""
+    return float((a - b).abs().max()) / (float(a.abs().max()) or 1.0)
+
+
+def k1_close(first, second):
+    """K1's one-iteration outputs (A, b, inliers) on two grids: the same
+    count, A and b within K1_TOL of their largest entry."""
+    A0, b0, n0 = first
+    A1, b1, n1 = second
+    gap = max(_rel_gap(A0, A1), _rel_gap(b0, b1))
+    return (torch.equal(n0, n1) and gap <= K1_TOL,
+            f"inliers {int(n0)} and {int(n1)}, A and b within {gap:.3g} of their largest entry")
+
+
+def k1_finish_close(first, second):
+    """K1's finishing outputs (the state block's pose and ok, its count,
+    and the last iteration's A, b and inliers) on two grids: the pose
+    within K1_FINISH_POSE_TOL, the same ok, the counts within
+    K1_FINISH_INLIER_SHARE (the last system's A and b are printed)."""
+    s0, c0, A0, b0, n0 = first
+    s1, c1, A1, b1, n1 = second
+    pose = float((s0[:12] - s1[:12]).abs().max())
+    share = max(abs(int(c0) - int(c1)) / max(int(c0), 1), abs(int(n0) - int(n1)) / max(int(n0), 1))
+    ab = max(_rel_gap(A0, A1), _rel_gap(b0, b1))
+    ok = pose <= K1_FINISH_POSE_TOL and torch.equal(s0[12], s1[12]) and share <= \
+        K1_FINISH_INLIER_SHARE
+    return ok, (f"pose within {pose:.3g}, ok {float(s0[12])} and {float(s1[12])}, inliers "
+                f"{int(c0)} and {int(c1)} (share {share:.3g}), the last A and b within "
+                f"{ab:.3g} of their largest entry")
+
+
+def repeat(form: Form, n: int) -> dict:
+    """Launch `form` n times on the same inputs, each time after filling
+    its outputs and scratch with the next sentinel, and count the launches
+    whose output bits differ from the first's; then as many on its second
+    grid, whose first launch must give the same bits (K1: `form.tol`).
+    Also counts the launches after which a buffer of `form.zero` is not
+    0."""
+    res = {"launches": 0, "differ": 0, "not_zero": 0}
+    first = None
+    for grid in (None,) if form.grid2 is None else (None, form.grid2):
+        ref, differ = None, 0
+        for i in range(n):
+            byte = SENTINELS[i % len(SENTINELS)]
+            for t in form.scratch:
+                _bits(t).fill_(byte)
+            with sentinel_outputs(byte):
+                outs = form.launch(grid)
+            res["launches"] += 1
+            res["not_zero"] += sum(bool(t.any()) for t in form.zero)
+            if ref is None:
+                ref = [o.clone() for o in outs]
+            elif not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(ref, outs)):
+                differ += 1
+        if grid is None:
+            res["differ"], first = differ, ref
+            continue
+        res["grid2"], res["differ_grid2"] = grid, differ
+        if form.tol is None:
+            same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(first, ref))
+            res["grid2_ok"], res["grid2_gap"] = same, "the same bits" if same else "other bits"
+        else:
+            res["grid2_ok"], res["grid2_gap"] = form.tol(first, ref)
+    res["ok"] = (res["differ"] == 0 and res["not_zero"] == 0 and res.get("differ_grid2", 0) == 0
+                 and res.get("grid2_ok", True))
+    return res
+
+
+def repeat_all(scale: str, device, n: int) -> dict:
+    """`repeat` over every kernel form of (a) at `scale`; returns
+    {form: its record}."""
+    params, intr, state, frame, T3 = orbit_state(scale, device)
+    out = {}
+    for form in all_forms(state, frame, T3, params, intr):
+        r = out[form.name] = repeat(form, n)
+        grid2 = ""
+        if "grid2" in r:
+            grid2 = (f"; grid {r['grid2']}: {r['differ_grid2']} differ, against the "
+                     f"wrapper's grid {r['grid2_gap']}")
+        ticket = f"; the ticket not 0 after {r['not_zero']}" if form.zero else ""
+        _log(f"  {form.name}: {r['launches']} launches; {r['differ']} of the {n - 1} after the "
+             f"first differ{grid2}{ticket}: {'ok' if r['ok'] else 'FAULT'}")
+    return out
 
 
 def launch_negative(device) -> None:
@@ -416,6 +668,9 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", choices=sorted(SCALES), default="main")
     ap.add_argument("--negative", action="store_true",
                     help="only the negative run: K5 with an output one row short")
+    ap.add_argument("--repeat", type=int, default=0, metavar="N",
+                    help="instead, launch every form N times with sentinel-filled outputs "
+                         "in the normal build, and on a second grid where it takes one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sanitize: the checked kernels run on the card; CUDA is not available")
@@ -423,35 +678,46 @@ def main(argv=None) -> None:
     from kinfu_tpu_torch.ops import kernels
 
     device = torch.device("cuda")
-    kernels.library(checked=True)
+    kernels.library(checked=not args.repeat)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     if args.negative:
         launch_negative(device)
+    elif args.repeat:
+        records = repeat_all(args.scale, device, args.repeat)
     else:
         launch_all(args.scale, device)
     _log(f"{time.perf_counter() - t0:.1f} s")
+    if args.repeat:
+        print(REPEAT_TAG + json.dumps(records), flush=True)
     print(LAUNCHES_TAG + json.dumps(dict(sorted(kernels.LAUNCHES.items()))), flush=True)
 
 
-def run_child(scale: str = "main", negative: bool = False, timeout: float = 600.0) -> dict:
+def run_child(scale: str = "main", negative: bool = False, timeout: float = 600.0,
+              repeat: int = 0) -> dict:
     """Run this module as a child process on the card (the checked build
-    must exist: `kernels.timed_build`). Returns {rc, seconds, launches
-    (None unless the run reached its end), trap (the checked build's report
-    line, or None), output (stdout and stderr)}."""
+    must exist: `kernels.timed_build`; with `repeat`, the normal one).
+    Returns {rc, seconds, launches (None unless the run reached its end),
+    repeat (with `repeat`: {form: record}, else None), trap (the checked
+    build's report line, or None), output (stdout and stderr)}."""
     root = Path(__file__).resolve().parents[2]
     cmd = [sys.executable, "-m", "kinfu_tpu_torch.tools.sanitize"]
     cmd += ["--negative"] if negative else ["--scale", scale]
+    cmd += ["--repeat", str(repeat)] if repeat else []
     env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True, timeout=timeout)
     lines = res.stdout.splitlines()
-    launches = next((json.loads(ln[len(LAUNCHES_TAG):]) for ln in reversed(lines)
-                     if ln.startswith(LAUNCHES_TAG)), None)
+
+    def tagged(tag):
+        return next((json.loads(ln[len(tag):]) for ln in reversed(lines)
+                     if ln.startswith(tag)), None)
+
     trap = next((ln for ln in lines if "kinfu checked build:" in ln), None)
-    return {"rc": res.returncode, "seconds": time.perf_counter() - t0, "launches": launches,
-            "trap": trap, "output": res.stdout}
+    return {"rc": res.returncode, "seconds": time.perf_counter() - t0,
+            "launches": tagged(LAUNCHES_TAG), "repeat": tagged(REPEAT_TAG), "trap": trap,
+            "output": res.stdout}
 
 
 if __name__ == "__main__":

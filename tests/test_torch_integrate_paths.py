@@ -6,8 +6,11 @@ integrate_gather`, the path of an untileable volume on the card).
 Mirrors of five tests of tests/test_pallas_integrate.py, with their
 thresholds and their 160x120 / 128^3 scale: test_warped_matches_gather_
 near_axis, test_plane_surface_parity, test_warped_full_coverage_tilted,
-test_warped_backward_camera and test_color_band_parity. No JAX reference
-is needed: both paths are the port's. What "parity" means (DIVERGENCES.md
+test_warped_backward_camera and test_color_band_parity; and the same
+comparison from three cameras inside the volume that look along -x, -y
+and +y, the faces that no orbit reaches, where the port's face flags must
+also be the JAX package's (`kinfu_tpu/ops/pallas_integrate.py::
+faces_needed`, the one JAX reference here). What "parity" means (DIVERGENCES.md
 items 17-19): the warped path measures signed distance along the ray, the
 gather path along the camera z axis, so in-band values differ by a
 secant factor but the zero crossing (the surface) is the same point; the
@@ -19,16 +22,23 @@ scaling is provably small.
 import functools
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
+
+from kinfu_tpu.geometry import se3 as jse3
+from kinfu_tpu.geometry.intrinsics import Intrinsics as JaxIntrinsics
+from kinfu_tpu.ops.pallas_integrate import faces_needed as jax_faces_needed
 
 from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.data.synthetic import SyntheticScene, default_test_scene, plane, sphere
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
-from kinfu_tpu_torch.ops.face_integrate import integrate_warped
-from kinfu_tpu_torch.ops.facewarp import FaceSpec
+from kinfu_tpu_torch.ops.face_integrate import faces_needed, integrate_warped
+from kinfu_tpu_torch.ops.facewarp import FaceSpec, face_frames
+from kinfu_tpu_torch.tools.raycast_parity_probe import face_counts
 from kinfu_tpu_torch.volume.integrate import integrate_gather
 from kinfu_tpu_torch.volume.tsdf import create_volume, tsdf_to_float
 
@@ -61,8 +71,35 @@ def _backward_scene():
                                             np.array([0.0, 0.0, 1.0]))])
 
 
+def _rotx(deg: float, t=(0.0, 0.0, 0.0)) -> np.ndarray:
+    a = np.radians(deg)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    T[:3, 3] = t
+    return T
+
+
+def _room_scene():
+    """Walls at x = -1.1 and y = +-1.1 with a sphere before each, inside
+    the 3 m volume: what the cameras of INSIDE see (chip_smoke.py phase 4e
+    renders the same scene at 640x480)."""
+    return SyntheticScene(primitives=[
+        plane(np.array([-1.1, 0.0, 0.0]), np.array([1.0, 0.0, 0.0])),
+        plane(np.array([0.0, 1.1, 0.0]), np.array([0.0, -1.0, 0.0])),
+        plane(np.array([0.0, -1.1, 0.0]), np.array([0.0, 1.0, 0.0])),
+        sphere((-0.5, 0.2, 2.2), 0.3), sphere((0.2, 0.6, 1.8), 0.25),
+        sphere((-0.2, -0.6, 2.2), 0.25)])
+
+
 #: the scenes by name (a cache key)
-SCENES = {"default": default_test_scene, "plane": _plane_scene, "backward": _backward_scene}
+SCENES = {"default": default_test_scene, "plane": _plane_scene, "backward": _backward_scene,
+          "room": _room_scene}
+
+#: cameras inside the volume and the face each makes live: a yaw of -100
+#: degrees (looking along -x, with -z), and pitches of +-90 degrees
+#: (looking along -y and +y; the camera's y axis points down)
+INSIDE = {"-x": _roty(-100.0, t=(0.5, 0.0, 2.2)), "-y": _rotx(90.0, t=(0.0, 0.3, 2.0)),
+          "+y": _rotx(-90.0, t=(0.0, -0.3, 2.0))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,3 +237,33 @@ def test_color_band_parity():
         b = (wc[both] >> shift) & 0xFF
         match = np.abs(a.astype(int) - b.astype(int)) <= 8
         assert match.mean() > 0.9, f"shift {shift}: {match.mean()}"
+
+
+@pytest.mark.parametrize("face", list(INSIDE))
+def test_warped_inside_faces(face):
+    """A camera inside the volume looking along -x, -y or +y: the port's
+    face flags are the JAX package's, they include that face, the warped
+    fusion writes voxels of that face and of no face gated off, and it
+    matches the gather fusion with test_warped_backward_camera's
+    thresholds."""
+    T = INSIDE[face]
+    cam = pose_from_matrix(torch.as_tensor(T))
+    vol_pose = pose_from_matrix(torch.as_tensor(PARAMS.volume_pose))
+    flags = faces_needed(compose(inverse(cam), vol_pose), INTR).tolist()
+    jv2c = jse3.compose(jse3.inverse(jse3.pose_from_matrix(jnp.asarray(T))),
+                        jse3.pose_from_matrix(jnp.asarray(PARAMS.volume_pose)))
+    jflags = jax_faces_needed(jv2c, JaxIntrinsics(INTR.width, INTR.height, INTR.fx, INTR.fy,
+                                                  INTR.cx, INTR.cy))
+    names = [f.name for f in face_frames()]
+    assert flags == [bool(jflags[n]) for n in names]
+    gated = {n for n, g in zip(names, flags) if g}
+    assert face in gated
+
+    g, w = _fuse_both(T, faces="auto", scene="room")
+    no_hits = torch.zeros((INTR.height, INTR.width, 3))
+    counts = face_counts(torch.as_tensor(w["weight"]), no_hits, compose(inverse(vol_pose), cam),
+                         INTR, PARAMS)
+    live = {n for n, (vox, _) in counts.items() if vox > 0}
+    assert face in live and live <= gated, (counts, gated)
+    assert counts[face][0] > 1000
+    _compare(g, w, min_ratio=0.85)

@@ -11,8 +11,9 @@ utils/, cli.py) against the JAX package's.
   - `python -m kinfu_tpu_torch run` on the CPU over 4 frames of the
     synthetic orbit at 160x120 / 128^3: its poses file equals a
     KinFuSession's on the same PNG frames, its 3D view is the session's
-    render_3d(); `eval` gives the JAX `eval`'s numbers; the flags of the
-    unported modes raise, naming their ROADMAP item.
+    render_3d(); `eval` gives the JAX `eval`'s numbers; the modes once
+    unported run (`--streaming`, `--relocalize`, `--pose-graph`, `sweep`,
+    `bench`).
 
 No JAX step is compiled: the JAX loaders and readers are numpy and PIL."""
 
@@ -390,24 +391,31 @@ def test_cli_eval_matches_jax(cli_run, fmt):
     assert got["ate_rmse_m"] < 2e-3
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["run", "--device", "cpu", "--streaming"], None),
-    (["run", "--device", "cpu", "--relocalize"], None),
-    (["run", "--device", "cpu", "--pose-graph"], None),
-    (["sweep"], None),
-    (["bench"], "the change that writes BENCHMARK.json"),
+@pytest.mark.parametrize("argv", [
+    ["run", "--device", "cpu", "--streaming"],
+    ["run", "--device", "cpu", "--relocalize"],
+    ["run", "--device", "cpu", "--pose-graph"],
+    ["sweep"],
+    ["bench"],
 ], ids=["streaming", "relocalize", "pose-graph", "sweep", "bench"])
-def test_cli_unported_modes_raise(argv, item, tmp_path, capsys):
-    """`bench`, which the port lacks, raises and says where it belongs;
-    the modes ported since this test was written run: `--streaming`,
-    `--relocalize` and `--pose-graph` over two PNG frames on the CPU
-    (streaming with a session's poses; the other two print their keyframe
-    and closure counts), and `sweep` runs two ranks over two 2-frame PNG
-    sequences and prints one JSON line per (sequence, config), each
-    sequence's poses those of `run`."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(argv)
+def test_cli_unported_modes_raise(argv, tmp_path, capsys):
+    """The modes that the port lacked when this test was written now run:
+    `--streaming`, `--relocalize` and `--pose-graph` over two PNG frames on
+    the CPU (streaming with a session's poses; the other two print their
+    keyframe and closure counts); `sweep` runs two ranks over two 2-frame
+    PNG sequences and prints one JSON line per (sequence, config), each
+    sequence's poses those of `run`; and `bench` takes bench.py's flags
+    and prints its one JSON line, with bench.py's four keys."""
+    if argv == ["bench"]:
+        assert cli.main(["bench", "--device", "cpu", "--dim", "128", "--width", "160",
+                         "--height", "120", "--levels", "2", "--frames", "3",
+                         "--warmup", "1", "--corner"]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        assert len(lines) == 1
+        row = json.loads(lines[0])
+        assert set(row) == {"metric", "value", "unit", "vs_baseline"}
+        assert row["metric"] == "ms_per_frame_160x120_128^3_corner" and row["unit"] == "ms"
+        assert row["value"] > 0
         return
     data, _ = _write_bundled(tmp_path / "seq", 2)
     if argv == ["sweep"]:
