@@ -54,6 +54,7 @@ SECONDS = {
     "test_torch_tools.py": 38,
     "test_pallas_icp.py": 35,
     "test_torch_march.py": 63,
+    "test_torch_spans.py": 122,
     "test_torch_icp_warped.py": 30,
     "test_torch_icp.py": 25,
     "test_sanitizers.py": 24,

@@ -1,0 +1,11 @@
+"""session.fetch_wait_ms: the host's time a frame in the program's span
+`kinfu.session.fetch` (`pipeline/session.py`: the pose, flag and inlier
+count read back, the wait for the device), in ms, from the traced run's
+Chrome trace (`spans.py`). A host time under the profiler, which about
+doubles a frame's host time: compare it with traced readings only."""
+
+from kfbench import spans
+
+
+def read(ctx):
+    return spans.span_value(ctx, ["kinfu.session.fetch"], "host_ms")

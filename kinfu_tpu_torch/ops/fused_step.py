@@ -36,6 +36,7 @@ from kinfu_tpu_torch.ops.face_raycast import (
     sweep_and_shade,
 )
 from kinfu_tpu_torch.ops.facewarp import default_face_spec, face_frames, warp_dims_ok
+from kinfu_tpu_torch.utils.profiling import span
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume, pack_rgb
 
 
@@ -77,37 +78,40 @@ def fused_update(
     here it always runs, so a caller whose `pre` must not act on a failed
     frame gates it with `good` itself."""
     if pre is not None:
-        vol = TSDFVolume(*pre(tuple(vol)))
+        with span("kinfu.step.shift"):
+            vol = TSDFVolume(*pre(tuple(vol)))
     size, focal = params.raycast_face
     rspec = RaySpec(size=int(size), focal=float(focal))
     fspec = default_face_spec()
     dev = depth_m.device
-    R, tt = cam2vol
-    # whole-matrix replacement of a non-finite pose (L106-114): element-wise
-    # repair of a partly-NaN R would not be a rotation
-    pose_ok = torch.isfinite(R).all() & torch.isfinite(tt).all()
-    R = torch.where(pose_ok, R, torch.eye(3, dtype=R.dtype, device=dev))
-    org = torch.where(pose_ok, tt, torch.zeros_like(tt))
 
-    gates = faces_needed(vol2cam, intr) & good
-    integrate_faces(vol, depth_m, pack_rgb(color_rgb), vol2cam, intr, params, fspec, gates)
-    frames = face_frames()
+    with span("kinfu.step.integrate"):
+        gates = faces_needed(vol2cam, intr) & good
+        integrate_faces(vol, depth_m, pack_rgb(color_rgb), vol2cam, intr, params, fspec, gates)
     # K7, kinfu_tpu/ops/layout_pin.py::pin_natural, pins the switch results'
     # TPU layout at this point; the volume here is updated in place and keeps
     # its layout, so its port is the identity
 
-    prm = composite_params(cam2vol, params)
-    fields = [sweep_and_shade(vol.tsdf, frame, prm[f, 9:12], params, rspec, gates[f])
-              for f, frame in enumerate(frames)]
-    vertex, normal, valid = resample_composite(
-        [t for t, _ in fields], [n for _, n in fields], prm, gates, intr, rspec)
+    with span("kinfu.step.raycast"):
+        frames = face_frames()
+        prm = composite_params(cam2vol, params)
+        fields = [sweep_and_shade(vol.tsdf, frame, prm[f, 9:12], params, rspec, gates[f])
+                  for f, frame in enumerate(frames)]
+        vertex, normal, valid = resample_composite(
+            [t for t, _ in fields], [n for _, n in fields], prm, gates, intr, rspec)
+        R, tt = cam2vol
+        # whole-matrix replacement of a non-finite pose (L106-114): element-wise
+        # repair of a partly-NaN R would not be a rotation
+        pose_ok = torch.isfinite(R).all() & torch.isfinite(tt).all()
+        R = torch.where(pose_ok, R, torch.eye(3, dtype=R.dtype, device=dev))
+        org = torch.where(pose_ok, tt, torch.zeros_like(tt))
+        vmap = torch.where(valid[..., None], (vertex - org) @ R, 0.0)
+        nmap = torch.where(valid[..., None], normal @ R, 0.0)
 
     # failure: reset (kinectfusion.cpp:97-102) or keep for the relocalizer
-    keep = good | (not reset_on_fail)
-    vol.tsdf.mul_(keep.to(torch.int16))
-    vol.weight.mul_(keep.to(torch.int16))
-    vol.color.mul_(keep.to(torch.int32))
-
-    vcam = (vertex - org) @ R
-    ncam = normal @ R
-    return vol, torch.where(valid[..., None], vcam, 0.0), torch.where(valid[..., None], ncam, 0.0)
+    with span("kinfu.step.reset"):
+        keep = good | (not reset_on_fail)
+        vol.tsdf.mul_(keep.to(torch.int16))
+        vol.weight.mul_(keep.to(torch.int16))
+        vol.color.mul_(keep.to(torch.int32))
+    return vol, vmap, nmap

@@ -41,6 +41,7 @@ from kinfu_tpu_torch.geometry.se3 import (
 from kinfu_tpu_torch.ops.fused_step import fused_supported, fused_update
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
 from kinfu_tpu_torch.tracking.icp import rigid_icp
+from kinfu_tpu_torch.utils.profiling import span
 from kinfu_tpu_torch.volume.integrate import integrate
 from kinfu_tpu_torch.volume.raycast import raycast
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume
@@ -114,11 +115,14 @@ def _update(vol: TSDFVolume, depth_m, color_rgb, vol2cam: Pose, cam2vol: Pose,
     Returns (vol, vmap, nmap) with the fused update's contract: the maps
     are zero where `good` is False, and the volume is then reset when
     reset_on_fail, else kept for a relocalizer."""
-    integrate(vol, depth_m, color_rgb, vol2cam, intr, params, gate=good)
-    rv, rn = raycast(vol, _finite_pose(cam2vol), intr, params, gate=good)
+    with span("kinfu.step.integrate"):
+        integrate(vol, depth_m, color_rgb, vol2cam, intr, params, gate=good)
+    with span("kinfu.step.raycast"):
+        rv, rn = raycast(vol, _finite_pose(cam2vol), intr, params, gate=good)
     if reset_on_fail:
-        for a in vol:
-            a.mul_(good.to(a.dtype))
+        with span("kinfu.step.reset"):
+            for a in vol:
+                a.mul_(good.to(a.dtype))
     return vol, rv, rn
 
 
@@ -164,13 +168,18 @@ def step_with(state: KinFuState, depth_mm: torch.Tensor, params: KinFuParams,
     ones, the sharded step (parallel/sharded.py) the rank's. `place(new_pose,
     is_first)`, if given, returns the frame's world-from-volume pose (the
     streaming step's moving grid, pipeline/streaming.py); by default it is
-    the configured fixed one."""
+    the configured fixed one. While a profiler records, the measurement is
+    the span `kinfu.step.frontend` and `track` is `kinfu.step.icp`; the
+    update's own spans are `kinfu.step.shift`, `.integrate`, `.raycast`
+    and `.reset`."""
     dev = state.vol.tsdf.device
 
-    dmaps, vmaps, nmaps = _measurement(depth_mm, params, intr)
+    with span("kinfu.step.frontend"):
+        dmaps, vmaps, nmaps = _measurement(depth_mm, params, intr)
 
     is_first = state.frame_count == 1
-    icp = track(vmaps, nmaps)
+    with span("kinfu.step.icp"):
+        icp = track(vmaps, nmaps)
     good = (icp.ok & ~is_first) | is_first
 
     # frame 1 fuses at the held pose; tracked frames right-multiply the

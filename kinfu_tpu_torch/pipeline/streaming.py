@@ -28,6 +28,7 @@ from kinfu_tpu_torch.ops.fused_step import fused_supported, fused_update
 from kinfu_tpu_torch.pipeline.kinfu import _update, init_state, step_with
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
 from kinfu_tpu_torch.tracking.icp import rigid_icp
+from kinfu_tpu_torch.utils.profiling import span
 from kinfu_tpu_torch.volume.stream import camera_centering_shift, shift_volume
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume
 
@@ -105,8 +106,9 @@ def streaming_step(
         if fused_supported(vol.tsdf.shape, params, dev):
             return fused_update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
                                 pre=lambda arrs: tuple(shift_volume(TSDFVolume(*arrs), shift)))
-        return _update(shift_volume(vol, shift), depth_m, color_rgb, vol2cam, cam2vol, intr,
-                       params, good)
+        with span("kinfu.step.shift"):
+            vol = shift_volume(vol, shift)
+        return _update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good)
 
     ks_n, out = step_with(ks, depth_mm, params, intr, track, update, place=place)
     origin_n = torch.where(out.tracking_ok, placed["origin"], 0)

@@ -1,18 +1,17 @@
-"""Structured per-frame metrics and stage timing (a copy of
-kinfu_tpu/utils/metrics.py: json and time only).
+"""Structured per-frame metrics (after kinfu_tpu/utils/metrics.py: json
+only).
 
 The reference's entire observability story is one std::cout wall-clock line
 per frame (kinectfusion.cpp:122-123). Here every frame yields a structured
-record (per-stage ms, ICP inliers, tracking state) that can stream to JSONL
-for offline analysis, plus running aggregates.
+record (ms, ICP inliers, tracking state) that can stream to JSONL for
+offline analysis, plus running aggregates. The time of each stage inside a
+frame is in a profiler's trace (utils/profiling.py, `span`).
 """
 
 from __future__ import annotations
 
 import json
-import time
-from contextlib import contextmanager
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 
@@ -22,7 +21,6 @@ class FrameMetrics:
     tracking_ok: bool
     total_ms: float
     icp_inliers: int = 0
-    stages_ms: Dict[str, float] = field(default_factory=dict)
 
     def to_json(self) -> str:
         return json.dumps(
@@ -31,7 +29,6 @@ class FrameMetrics:
                 "tracking_ok": self.tracking_ok,
                 "total_ms": round(self.total_ms, 3),
                 "icp_inliers": self.icp_inliers,
-                **{f"ms_{k}": round(v, 3) for k, v in self.stages_ms.items()},
             }
         )
 
@@ -52,12 +49,6 @@ class MetricsRecorder:
         if self.echo:
             # reference-parity console line (kinectfusion.cpp:122-123)
             print(f"Frame:{m.frame}||Time:{m.total_ms:.1f} ms")
-
-    @contextmanager
-    def stage(self, metrics: FrameMetrics, name: str):
-        t0 = time.perf_counter()
-        yield
-        metrics.stages_ms[name] = (time.perf_counter() - t0) * 1e3
 
     def summary(self) -> Dict[str, float]:
         if not self.frames:

@@ -1,9 +1,13 @@
 """Profiling helpers on torch.profiler and CUDA events (port of
 kinfu_tpu/utils/profiling.py, which wraps jax.profiler).
 
+  - `span(name, frame=None)`: a named range of the program (the session's
+    and the step's stages), recorded on the host's timeline while a torch
+    profiler records, and the shared null context otherwise;
   - `trace(logdir)`: context manager around `torch.profiler.profile` that
-    writes a Chrome trace of the host and device timeline
-    (`logdir/trace.json`, viewable in Perfetto or chrome://tracing).
+    writes a Chrome trace of the host and device timeline, the spans
+    included (`logdir/trace.json`, viewable in Perfetto or
+    chrome://tracing).
   - `device_time(fn, *args)`: the best of `reps` timed calls of fn(*args).
     When an argument is a CUDA tensor, each call is bracketed by CUDA
     events on the current stream (the device's time from the first event
@@ -18,6 +22,36 @@ import time
 from typing import Any, Callable, Tuple
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def profiler_enabled() -> bool:
+    """True while a torch profiler records (torch.profiler.profile, the
+    autograd profiler). Reads torch's private flag, here alone."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, frame=None):
+    """A context manager around one stage of the program, named `name`.
+
+    While a profiler records it is a host range of the profiler (torch's
+    `_RecordFunctionFast`, a "cpu_op" event of the Chrome trace) on the
+    trace's own clock, with {"frame": frame} as its args where given (the
+    trace shows them under `record_shapes=True`); each device operation
+    ties to the span that launched it through its launch call's
+    `correlation` id. Not `torch.profiler.record_function`: kineto copies
+    a user annotation onto the device's timeline as well, where it reads
+    as one more device operation. Otherwise `span` is one shared
+    `contextlib.nullcontext`, and costs the flag check.
+    """
+    if not profiler_enabled():
+        return _OFF
+    if frame is None:  # torch aborts on keyword_values=None
+        return _RecordFunctionFast(name)
+    return _RecordFunctionFast(name, keyword_values={"frame": frame})
 
 
 @contextlib.contextmanager

@@ -86,7 +86,7 @@ def jax_out(run):
 def test_session_tracks_like_the_step_by_hand(run):
     sess, oks, _, frames, gt, _ = run
     assert oks == [True] * N and sess.frame_count == N + 1
-    assert len(sess.frame_times_ms) == N and sess.last_icp_inliers > 1000
+    assert len(sess.pose_record) == N and sess.last_icp_inliers > 1000
     step = make_step_fn(PARAMS, INTR)
     state = init_state(PARAMS, INTR, device="cpu")
     record = [np.eye(4, dtype=np.float32)]
