@@ -135,7 +135,18 @@ Phases; any failure exits non-zero before the result line:
      inside the moved volume, a 3D view and a checkpoint that loads with
      its offset and tracks the next frame; prints one grid shift's time
      beside its bound and the streaming step's ms/frame beside the orbit's;
-  4d. (run after 5e, before the profiler) the sharded step on the one card.
+  5f. (run after 5e) the session's step replayed from CUDA graphs
+     (pipeline/graphed.py): a graphed and an eager KinFuSession side by
+     side on the benchmark's configurations and mixes (kfbench/), the
+     orbit on kinfu-pcl-512 (50 frames) and the corridor on
+     kinfu-stream-512 (until the grid has shifted on 100 frames), each then
+     a blank depth frame (tracking fails; the state is reset on the
+     device), 10 frames, `reset()` and 4 frames: the tracking flags, poses,
+     model maps, volume, frame count, grid origin and kernel launch counts
+     equal bit for bit at every frame, one capture a session, and a traced
+     replayed frame launching one graph a segment, whose operations copy
+     nothing from the host (also alone: --graphs);
+  4d. (run after 5f, before the profiler) the sharded step on the one card.
      In this process, the shard forms against their plain versions at the
      main path's shapes, on the 512^3 volume of frames 0-2 cut into 4 Z
      slabs and 4 Y slabs: K2 and K3 on each slab with its origin folded
@@ -200,7 +211,7 @@ Phases; any failure exits non-zero before the result line:
      each kernel's launches on every path this script drives, the sharded
      ones summed over the ranks), then the card, then the result line.
 
-Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs]
+Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs] [--graphs]
 """
 
 from __future__ import annotations
@@ -3199,6 +3210,170 @@ def run_repeat(smi: str) -> dict:
     return records
 
 
+# ---- phase 5f: the session's step replayed from CUDA graphs ---------------
+
+#: the benchmark's cells (kfbench/) of phase 5f: (cell, frames before the
+#: blank depth frame, None: until the grid has shifted on GRAPH_SHIFTED
+#: frames; frames after it; frames from the reset on)
+GRAPH_LEGS = (("pcl512.orbit", 50, 10, 5), ("stream512.corridor", None, 10, 5))
+GRAPH_SEED = 2**33 + 16
+GRAPH_SHIFTED = 100
+#: the state's tensors, in `pipeline/graphed.py::state_tensors` order
+STATE_FIELDS = ("tsdf", "weight", "colour", "pose R", "pose t")
+
+
+def _state_names(state) -> list:
+    ks = getattr(state, "kinfu", state)
+    n = len(ks.model_vmaps)
+    return (list(STATE_FIELDS) + [f"vmap {i}" for i in range(n)]
+            + [f"nmap {i}" for i in range(n)] + ["frame count"]
+            + (["origin"] if ks is not state else []))
+
+
+def run_graphs(device, smi: str) -> dict:
+    """Phase 5f: a graphed session (pipeline/graphed.py) and an eager one
+    side by side, each frame's arrays handed to both, on the benchmark's
+    configurations and mixes: the orbit on kinfu-pcl-512, the corridor on
+    kinfu-stream-512 until the grid has shifted on GRAPH_SHIFTED frames,
+    then in each a blank depth frame (tracking fails, and the step resets
+    the state on the device), the frames after it, `reset()` and a few
+    frames more. At every frame the tracking flags, the poses, the model
+    maps, the volume, the frame count, the grid's origin and the kernels'
+    launch counts must be equal bit for bit; the graphs are captured once;
+    one more frame traced under torch.profiler launches one graph a
+    segment, and no device operation of the graphs copies from the host.
+    Returns {cell: frames compared}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kfbench import gen, harness
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.pipeline.graphed import GraphedStep, state_tensors
+
+    print(f"[5f] the step replayed from CUDA graphs: a graphed and an eager session side by "
+          f"side on {', '.join(c for c, *_ in GRAPH_LEGS)} (seed {GRAPH_SEED})", flush=True)
+    out = {}
+    for cell, before, after, after_reset in GRAPH_LEGS:
+        t_leg = time.perf_counter()
+        entry = harness.load_cell(cell)
+        traffic = gen.Traffic(entry["mix"], GRAPH_SEED, harness._camera(entry["config"]),
+                              device)
+        graphed = harness.make_session(entry["config"], device)
+        eager = harness.make_session(entry["config"], device)
+        if not isinstance(graphed._step, GraphedStep):
+            _fail(f"graphs: the {cell} session does not capture its step")
+        # the eager session: the step as every other path runs it
+        eager._graphed, eager._step = False, eager._step.step
+        names = _state_names(graphed.state)
+        log = {"ok": [], "ms": ([], []), "diffs": [], "shifts": 0, "segments": None}
+        origin = [None]
+
+        def one(k: int, kind: str) -> None:
+            color, depth = traffic.frame(k)
+            if kind == "blank":
+                depth = np.zeros_like(depth)
+            if kind == "reset":
+                graphed.reset()
+                eager.reset()
+            res = []
+            for j, sess in enumerate((eager, graphed)):
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                ok = sess.pipeline(color, depth)
+                log["ms"][j].append((time.perf_counter() - t0) * 1e3)
+                res.append((ok, dict(kernels.LAUNCHES)))
+            i = len(log["ok"])
+            log["ok"].append((kind, res[1][0]))
+            differ = [nm for nm, a, b in zip(names, state_tensors(eager.state),
+                                             state_tensors(graphed.state))
+                      if not torch.equal(a, b)]
+            if not np.array_equal(eager.get_cur_camera_pose(), graphed.get_cur_camera_pose()):
+                differ.append("pose record")
+            if res[0][0] != res[1][0]:
+                differ.append("tracking flag")
+            if res[0][1] != res[1][1]:
+                differ.append(f"launches {res[0][1]} / {res[1][1]}")
+            if differ:
+                log["diffs"].append((i, k, kind, differ))
+            segs = graphed._step.segments
+            if segs is not None:
+                if log["segments"] is None:
+                    log["segments"] = (i, segs)
+                elif segs is not log["segments"][1]:
+                    _fail(f"graphs: {cell} captured its step again at frame {i}")
+            if graphed.streaming:
+                o = graphed.state.origin_vox.cpu()
+                log["shifts"] += origin[0] is not None and bool((o != origin[0]).any())
+                origin[0] = o
+
+        k = 0
+        while (log["shifts"] < GRAPH_SHIFTED) if before is None else (k < before):
+            one(k, "frame")
+            k += 1
+        one(k, "blank")
+        for _ in range(after):
+            one(k, "frame")
+            k += 1
+        for j in range(after_reset):
+            one(k, "reset" if j == 0 else "frame")
+            k += 1
+        n = len(log["ok"])
+        if log["segments"] is None:
+            _fail(f"graphs: {cell} never replayed its step")
+        first, segs = log["segments"]
+        print(f"    {cell}: {n} frames compared ({first} eager, {n - first} replayed; "
+              f"grid shifted on {log['shifts']}); segments (span: nodes, launches): "
+              + "; ".join(f"{s.name or 'glue'}: {s.nodes}, {sum(s.launches.values())}"
+                          for s in segs), flush=True)
+        print(f"    host ms a frame, median of the replayed frames: eager "
+              f"{np.median(log['ms'][0][first:]):.3f}, graphed "
+              f"{np.median(log['ms'][1][first:]):.3f} on {smi}", flush=True)
+        for d in log["diffs"][:5]:
+            print(f"    frame {d[0]} (traffic frame {d[1]}, {d[2]}): differs in {d[3]}",
+                  flush=True)
+        if log["diffs"]:
+            _fail(f"graphs: {cell}: the graphed session differs from the eager one on "
+                  f"{len(log['diffs'])} of {n} frames")
+        failed = [i for i, (kind, ok) in enumerate(log["ok"]) if ok != (kind != "blank")]
+        if failed:
+            _fail(f"graphs: {cell}: frames {failed} tracked where they should have failed or "
+                  f"failed where they should have tracked")
+        if before is None and log["shifts"] < GRAPH_SHIFTED:
+            _fail(f"graphs: {cell}: the grid shifted on {log['shifts']} frames only")
+
+        # one more frame, traced: one graph launch a segment, no copy from
+        # the host but the upload's two
+        color, depth = traffic.frame(k)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            graphed.pipeline(color, depth)
+            torch.cuda.synchronize()
+        eager.pipeline(color, depth)
+        evs = list(prof.profiler.kineto_results.events())
+        launches = {e.correlation_id() for e in evs
+                    if e.name().startswith(("cudaGraphLaunch", "cuGraphLaunch"))}
+        on_device = [e for e in evs if e.device_type() == DeviceType.CUDA]
+        replayed = [e.name() for e in on_device if e.correlation_id() in launches]
+        htod = [n for n in replayed if "HtoD" in n]
+        same = all(torch.equal(a, b)
+                   for a, b in zip(state_tensors(eager.state), state_tensors(graphed.state)))
+        print(f"    a traced replayed frame: {len(launches)} graph launches, running "
+              f"{len(replayed)} device operations (the graphs hold "
+              f"{sum(s.nodes for s in segs)} nodes), of them copies from the host {htod}; "
+              f"the frame's other copies from the host "
+              f"{[e.name() for e in on_device if 'HtoD' in e.name() and e.name() not in htod]}; "
+              f"the states equal after it: {same}; the leg took "
+              f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+        if len(launches) != len(segs) or not replayed or htod or not same:
+            _fail(f"graphs: {cell}: a replayed frame launched {len(launches)} graphs for "
+                  f"{len(segs)} segments, running {len(replayed)} operations, {htod} copies "
+                  f"from the host; states equal {same}")
+        out[cell] = n + 1
+        del graphed, eager, traffic
+        torch.cuda.empty_cache()
+    return out
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3216,6 +3391,9 @@ def main() -> None:
     ap.add_argument("--profile-table", metavar="PATH",
                     help=f"where to write the full profiler table (default: {PROFILE_TABLE}); "
                          "given, phase 4d also profiles rank 0 of the Z-sharded step")
+    ap.add_argument("--graphs", action="store_true",
+                    help="only run phase 5f (the step replayed from CUDA graphs against the "
+                         "eager step, on the benchmark's cells) and exit, printing no result")
     ap.add_argument("--count-syncs", action="store_true",
                     help="only count the host syncs of a step (frames 2-5 of the orbit, "
                          "under sync-debug mode \"warn\"), with its launches and ms a "
@@ -3250,6 +3428,9 @@ def main() -> None:
           f"checked build) and loaded the normal one in {t_build:.1f} s", flush=True)
 
     params, intr = configure()
+    if args.graphs:
+        run_graphs(device, smi)
+        return
     if args.count_syncs:
         frames, _ = orbit_frames(6, intr)
         for fused_mode, raycast_mode in COUNT_SYNCS_MODES:
@@ -3392,6 +3573,7 @@ def main() -> None:
     stream_launches, stream_ms = run_streaming(corridor, corridor_gt, params, intr, device, smi,
                                                ms_frame)
     torch.cuda.empty_cache()
+    run_graphs(device, smi)
 
     t_4d = time.perf_counter()
     print(f"[4d] the sharded step on the one card: shard forms against their plain versions "

@@ -56,6 +56,7 @@ SECONDS = {
     "test_torch_march.py": 63,
     "test_torch_spans.py": 122,
     "test_torch_icp_warped.py": 30,
+    "test_torch_graph.py": 20,
     "test_torch_icp.py": 25,
     "test_sanitizers.py": 24,
     "test_frontend.py": 21,

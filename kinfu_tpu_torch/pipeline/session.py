@@ -34,6 +34,13 @@ the view ahead of the camera inside it, for corridor-scale sequences. Its
 state is a `StreamingState` (the step's state in `.kinfu`, the grid's
 offset in `.origin_vox`); it excludes relocalization and the pose graph,
 as in the JAX package.
+
+On the card, a session with neither relocalization nor the pose graph
+whose volume takes the fused update (`pipeline/graphed.py::graphed_ok`:
+the plain and the streaming session) replays its step from CUDA graphs
+after its first frames (`GraphedStep`): its state tensors, and the device
+buffers each frame is uploaded into, keep their addresses for the whole
+session, and `reset()` resets them in place.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix, pos
 from kinfu_tpu_torch.mapping.keyframes import KeyframeStore
 from kinfu_tpu_torch.mapping.loop_closure import LoopClosureConfig, close_loop, find_candidate
 from kinfu_tpu_torch.mapping.relocalize import Relocalizer, TrackingStatus
+from kinfu_tpu_torch.pipeline.graphed import GraphedStep, graphed_ok, reset_state_
 from kinfu_tpu_torch.pipeline.kinfu import (
     _measurement,
     _model_pyramid,
@@ -110,6 +118,12 @@ class KinFuSession:
             self.keyframes = KeyframeStore()
         # ---- pose graph / loop closure (mapping/loop_closure.py) ----
         self.pose_graph = pose_graph and not streaming
+        # ---- the step replayed from CUDA graphs (pipeline/graphed.py) ----
+        self._graphed = graphed_ok(self.device, self._kinfu.vol.tsdf.shape, self.params,
+                                   relocalize, self.pose_graph)
+        if self._graphed:
+            self._step = GraphedStep(self._step)
+        self._inputs = None
         self.loop_closures: List[dict] = []
         if self.pose_graph:
             self.loop_config = loop_config or LoopClosureConfig()
@@ -150,9 +164,7 @@ class KinFuSession:
         self._calls += 1
         with span("kinfu.session.pipeline", frame=self._calls):
             with span("kinfu.session.upload"):
-                depth = torch.as_tensor(np.asarray(depth_mm, dtype=np.float32),
-                                        device=self.device)
-                color = torch.as_tensor(np.asarray(color_rgb, dtype=np.uint8), device=self.device)
+                depth, color = self._upload(depth_mm, color_rgb)
             with span("kinfu.session.step"):
                 self.state, out = self._step(self.state, depth, color)
             with span("kinfu.session.fetch"):
@@ -180,6 +192,22 @@ class KinFuSession:
                 self.frame_count = 1
                 self._clear_pose_graph()
             return ok
+
+    def _upload(self, depth_mm: np.ndarray, color_rgb: np.ndarray):
+        """The frame on the session's device: float32 depth [H,W] and uint8
+        colour [H,W,3]. A graphed step reads them from buffers allocated at
+        the first frame, which each frame is copied into."""
+        depth = np.asarray(depth_mm, dtype=np.float32)
+        color = np.asarray(color_rgb, dtype=np.uint8)
+        if not self._graphed:
+            return (torch.as_tensor(depth, device=self.device),
+                    torch.as_tensor(color, device=self.device))
+        host = (torch.as_tensor(depth), torch.as_tensor(color))
+        if self._inputs is None:
+            self._inputs = tuple(torch.empty_like(t, device=self.device) for t in host)
+        for buf, t in zip(self._inputs, host):
+            buf.copy_(t)
+        return self._inputs
 
     def _clear_pose_graph(self) -> None:
         """A map wipe invalidates every keyframe (their poses live in the
@@ -312,7 +340,10 @@ class KinFuSession:
         return False, np.eye(4, dtype=np.float32)
 
     def reset(self) -> None:
-        if self.streaming:
+        if self._graphed:
+            # in place: the graphs hold the state's addresses
+            reset_state_(self.state)
+        elif self.streaming:
             self.state = init_streaming_state(self.params, self.intr, device=self.device)
         else:
             self.state = init_state(self.params, self.intr, device=self.device)

@@ -4,6 +4,9 @@ kinfu_tpu/utils/profiling.py, which wraps jax.profiler).
   - `span(name, frame=None)`: a named range of the program (the session's
     and the step's stages), recorded on the host's timeline while a torch
     profiler records, and the shared null context otherwise;
+  - `cut_at_spans(cuts)`: while it is open, each outermost span calls
+    `cuts` at its boundaries instead (`Cuts`; the CUDA graph capture of
+    the step cuts its work there, pipeline/graphed.py);
   - `trace(logdir)`: context manager around `torch.profiler.profile` that
     writes a Chrome trace of the host and device timeline, the spans
     included (`logdir/trace.json`, viewable in Perfetto or
@@ -26,6 +29,8 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _autograd_profiler
 
 _OFF = contextlib.nullcontext()
+#: the `Cuts` that spans call while `cut_at_spans` is open
+_cuts = None
 
 
 def profiler_enabled() -> bool:
@@ -45,13 +50,59 @@ def span(name: str, frame=None):
     `correlation` id. Not `torch.profiler.record_function`: kineto copies
     a user annotation onto the device's timeline as well, where it reads
     as one more device operation. Otherwise `span` is one shared
-    `contextlib.nullcontext`, and costs the flag check.
+    `contextlib.nullcontext`, and costs the flag check. While
+    `cut_at_spans` is open, it is the boundary of a `Cuts` instead.
     """
+    if _cuts is not None:
+        return _cuts.span(name)
     if not profiler_enabled():
         return _OFF
     if frame is None:  # torch aborts on keyword_values=None
         return _RecordFunctionFast(name)
     return _RecordFunctionFast(name, keyword_values={"frame": frame})
+
+
+class Cuts:
+    """The boundaries of the outermost spans opened while `cut_at_spans`
+    is open: `enter(name)` as one opens, `leave(name)` as it closes.
+    Spans inside it are not cut. Subclasses act at the boundaries; this
+    one records the names in order (`names`)."""
+
+    def __init__(self):
+        self.names = []
+        self._depth = 0
+
+    def enter(self, name: str) -> None:
+        self.names.append(name)
+
+    def leave(self, name: str) -> None:
+        pass
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        self._depth += 1
+        outermost = self._depth == 1
+        try:
+            if outermost:
+                self.enter(name)
+            yield
+        finally:
+            self._depth -= 1
+        if outermost:
+            self.leave(name)
+
+
+@contextlib.contextmanager
+def cut_at_spans(cuts: Cuts):
+    """Within the block, `span` calls `cuts` at its boundaries."""
+    global _cuts
+    if _cuts is not None:
+        raise RuntimeError("spans are already being cut")
+    _cuts = cuts
+    try:
+        yield cuts
+    finally:
+        _cuts = None
 
 
 @contextlib.contextmanager
