@@ -122,11 +122,10 @@ def to_device(state: dict, device) -> dict:
             "origin": None if state["origin"] is None else state["origin"].cpu()}
 
 
-def make_session(config: dict, device):
-    """The system under test, configured from the configuration file."""
+def program_args(config: dict):
+    """The port's (KinFuParams, Intrinsics) of the configuration file."""
     from kinfu_tpu_torch.config import KinFuParams
     from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
-    from kinfu_tpu_torch.pipeline.session import KinFuSession
 
     p = dict(config["params"])
     for k in ("icp_iters", "volume_dims", "volume_range", "volume_origin"):
@@ -135,9 +134,21 @@ def make_session(config: dict, device):
     s = config["sensor"]
     intr = Intrinsics(width=s["width"], height=s["height"], fx=s["fx"], fy=s["fy"], cx=s["cx"],
                       cy=s["cy"])
+    return KinFuParams(**p), intr
+
+
+def make_session(config: dict, device):
+    """The system under test, configured from the configuration file: its
+    "params", its "sensor" and the session's modes under "session"
+    (`streaming`, `relocalize`, `pose_graph`, each off by default)."""
+    from kinfu_tpu_torch.pipeline.session import KinFuSession
+
+    params, intr = program_args(config)
     sess_cfg = config.get("session", {})
-    sess = KinFuSession(intr, KinFuParams(**p), device=device,
-                        streaming=bool(sess_cfg.get("streaming", False)))
+    sess = KinFuSession(intr, params, device=device,
+                        streaming=bool(sess_cfg.get("streaming", False)),
+                        relocalize=bool(sess_cfg.get("relocalize", False)),
+                        pose_graph=bool(sess_cfg.get("pose_graph", False)))
     return sess
 
 
@@ -175,7 +186,14 @@ def run(entry: dict, seed: int, seconds: float, trace: bool, device, t_start: fl
         session_factory: Callable = make_session, check_span: int = CHECK_SPAN,
         control_dt=None, max_warmup: int = MAX_WARMUP) -> dict:
     """One run. Returns the result dict (the keys of the printed line) and,
-    under "log", what the earlier lines print."""
+    under "log", what the earlier lines print. A configuration whose
+    session asks for "shards" runs the sharded step, a rank a card
+    (`ranks.run`)."""
+    if entry["config"].get("session", {}).get("shards"):
+        from kfbench import ranks
+
+        return ranks.run(entry, seed, seconds, trace, device, t_start, check_span=check_span,
+                         control_dt=control_dt)
     config, mix, cell = entry["config"], entry["mix"], entry["cell"]
     device = torch.device(device)
     cam = _camera(config)
@@ -305,12 +323,23 @@ def run(entry: dict, seed: int, seconds: float, trace: bool, device, t_start: fl
                        f"{np.mean([x['ops'] for x in w]):.0f} operations, least time "
                        f"{np.mean([x['least_s'] for x in w]) * 1e3:.6f} ms")
 
-    res = {"correct": bool(correct), "attempted": n, "failed": n - sum(oks)}
     e2e = {"frame_ms": (t_end - t_begin) / n * 1e3,
            "frame_p95_ms": float(np.percentile(np.asarray(spans) * 1e3, 95)),
            "setup_s": setup_s}
     ctx = {"spans_ms": [s * 1e3 for s in spans], "trace": prof_ctx, "config": config,
            "cell": cell, "seconds": seconds}
+    return result(entry, trace, correct, n, n - sum(oks), e2e, ctx,
+                  _device(device, peak, prof_ctx), numbers, log + diag, control)
+
+
+def result(entry: dict, trace: bool, correct: bool, n: int, failed: int, e2e: dict, ctx: dict,
+           device: dict, numbers: dict, log: list, control) -> dict:
+    """The result dict of a run: the end-to-end metrics `e2e`, or with
+    `trace` the per-layer metrics that the readers find in `ctx`, the
+    device, the numbers checked beside their limits, and under "log" the
+    run's lines and those of its trace."""
+    prof_ctx = ctx["trace"]
+    res = {"correct": bool(correct), "attempted": n, "failed": failed}
     if trace:
         metrics = {}
         for m in entry["per_layer"]:
@@ -321,12 +350,12 @@ def run(entry: dict, seed: int, seconds: float, trace: bool, device, t_start: fl
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                    for m in entry["end_to_end"] if m["name"] in e2e}
     res["metrics"] = metrics
-    res["device"] = _device(device, peak, prof_ctx)
+    res["device"] = device
     if trace and prof_ctx is not None:
         res["breakdown"] = prof_ctx["breakdown"]
     res["checks"] = {k: {"value": numbers.get(k, math.nan), "limit": v}
-                     for k, v in limits.items()}
-    res["log"] = log + diag + (prof_ctx.get("log", []) if prof_ctx else [])
+                     for k, v in entry["limits"].items()}
+    res["log"] = log + (prof_ctx.get("log", []) if prof_ctx else [])
     if control is not None:
         res["system"], res["control"] = numbers, control
     return res

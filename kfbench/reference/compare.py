@@ -101,18 +101,27 @@ def _q(x: torch.Tensor, qs=(0.5, 0.9, 0.99)) -> str:
     return " ".join(f"q{int(q * 100)} {a:.4g}" for q, a in zip(qs, v)) + f" max {float(x.max()):.4g}"
 
 
-def _vol_miss_pct(before, prog, ref, ref_upd, diag=None) -> float:
-    """Share (%) of the voxels that the reference updates or either side
-    changes where the two disagree (OBS_TOL, COLOUR_TOL)."""
+def vol_miss(before, prog, ref, ref_upd):
+    """(changed, bad, wbad, gap, dc): the voxels that the reference updates
+    or either side changes, those of them where the two disagree (OBS_TOL,
+    COLOUR_TOL), those whose weights differ, and each voxel's TSDF gap (of
+    the band) and colour gap."""
     (t0, w0, c0), (tp, wp, cp), (tr, wr, cr) = before, prog, ref
     changed = ref_upd | (tp != t0) | (wp != w0) | (cp != c0) | (tr != t0) | (cr != c0)
-    n = int(changed.sum())
-    if n == 0:
-        return 0.0
     gap = (tp.float() - tr.float()).abs() * ((w0.float() + 1.0) / K.SHORTMAX)
     dc = (K.unpack(cp, torch.int32) - K.unpack(cr, torch.int32)).abs().amax(-1)
     wbad = changed & (wp != wr)
     bad = changed & ((wp != wr) | (gap > OBS_TOL) | (dc > COLOUR_TOL))
+    return changed, bad, wbad, gap, dc
+
+
+def _vol_miss_pct(before, prog, ref, ref_upd, diag=None) -> float:
+    """Share (%) of the voxels that the reference updates or either side
+    changes where the two disagree (OBS_TOL, COLOUR_TOL)."""
+    changed, bad, wbad, gap, dc = vol_miss(before, prog, ref, ref_upd)
+    n = int(changed.sum())
+    if n == 0:
+        return 0.0
     if diag is not None:
         diag.append(f"fuse: {n} voxels updated or changed, weight differs on {int(wbad.sum())}, "
                     f"obs gap {_q(gap[changed])}, colour gap {_q(dc[changed])}")
@@ -214,6 +223,20 @@ def judge_start(st: Setup, depth_mm, rgb, prog: dict, diag=None) -> Dict[str, fl
             "fuse_miss_pct": _vol_miss_pct(before, prog["vol"], ref["vol"], ref["upd"], diag)}
 
 
+def pose_gap_mm(st: Setup, vs, ns, before: dict, pose) -> float:
+    """The largest gap (mm) of the grid's 8 corners between `pose` and the
+    reference's ICP of the frame's measurement (vs, ns) from the state
+    `before` it."""
+    dev = vs[0].device
+    inc, _, _ = K.icp(vs, ns, before["vmaps"], before["nmaps"], st.cam, st.cfg, torch.float32)
+    pose_ref = before["pose"].double() @ inc.double()
+    pose_prog = pose.double()
+    pts = st.corners(before["origin"], "cpu").to(dev)
+    gap = ((pts @ pose_prog[:3, :3].T + pose_prog[:3, 3])
+           - (pts @ pose_ref[:3, :3].T + pose_ref[:3, 3]))
+    return float(torch.linalg.vector_norm(gap, dim=-1).max()) * 1e3
+
+
 def judge_step(st: Setup, depth_mm, rgb, before: dict, prog: dict,
                diag=None) -> Dict[str, float]:
     """One tracked frame's numbers: `before` is the system's state before
@@ -221,13 +244,7 @@ def judge_step(st: Setup, depth_mm, rgb, before: dict, prog: dict,
     dev = before["vol"][0].device
     f32 = torch.float32
     ds, vs, ns = K.measurement(torch.as_tensor(depth_mm, device=dev), st.cam, st.cfg, f32)
-    inc, _, _ = K.icp(vs, ns, before["vmaps"], before["nmaps"], st.cam, st.cfg, f32)
-    pose_ref = before["pose"].double() @ inc.double()
-    pose_prog = prog["pose"].double()
-    pts = st.corners(before["origin"], "cpu").to(dev)
-    gap = ((pts @ pose_prog[:3, :3].T + pose_prog[:3, 3])
-           - (pts @ pose_ref[:3, :3].T + pose_ref[:3, 3]))
-    out = {"pose_gap_mm": float(torch.linalg.vector_norm(gap, dim=-1).max()) * 1e3}
+    out = {"pose_gap_mm": pose_gap_mm(st, vs, ns, before, prog["pose"])}
 
     vol = _clone_vol(before["vol"])
     origin = before["origin"]

@@ -251,12 +251,16 @@ def pack(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]
 
 
-def _chunk_voxels(grid: Grid, z0: int, nz: int, dt, device):
-    X, Y, _ = grid.dims
+def _chunk_voxels(grid: Grid, z0: int, nz: int, dt, device, lo=(0, 0, 0), shape=None):
+    """Volume-frame corners of planes z0..z0+nz of an array [Z, Y, X]
+    (`shape`, the whole grid by default) whose first voxel is the grid's
+    voxel `lo` (x, y, z)."""
+    X, Y = grid.dims[:2] if shape is None else (shape[2], shape[1])
+    x0, y0, zl = lo
     vx, vy, vz = grid.voxel
-    z = (torch.arange(z0, z0 + nz, dtype=dt, device=device) * vz)[:, None, None]
-    y = (torch.arange(Y, dtype=dt, device=device) * vy)[None, :, None]
-    x = (torch.arange(X, dtype=dt, device=device) * vx)[None, None, :]
+    z = (torch.arange(zl + z0, zl + z0 + nz, dtype=dt, device=device) * vz)[:, None, None]
+    y = (torch.arange(y0, y0 + Y, dtype=dt, device=device) * vy)[None, :, None]
+    x = (torch.arange(x0, x0 + X, dtype=dt, device=device) * vx)[None, None, :]
     return x, y, z
 
 
@@ -286,11 +290,13 @@ def _observed(depth_m, u, v, inb, cam: Camera):
 
 
 def fuse(tsdf, weight, color, depth_m, rgb, vol2cam, cam: Camera, grid: Grid, dt,
-         z_chunk: int = 16, upd: torch.Tensor | None = None) -> None:
+         z_chunk: int = 16, upd: torch.Tensor | None = None, lo=(0, 0, 0)) -> None:
     """Fuse one frame into the int16 / int16 / packed int32 arrays [Z, Y, X]
     in place. depth_m [H, W] metres (the filtered level 0), rgb [H, W, 3]
     uint8, vol2cam 4x4 (volume frame to camera frame). `upd`, a bool
-    [Z, Y, X], receives the voxels the frame updates."""
+    [Z, Y, X], receives the voxels the frame updates. The arrays are the
+    whole grid, or a box of it whose first voxel is the grid's voxel `lo`
+    (x, y, z): each voxel is fused as the whole grid's voxel."""
     Z = tsdf.shape[0]
     dev = tsdf.device
     vol2cam = vol2cam.to(dt)
@@ -299,7 +305,7 @@ def fuse(tsdf, weight, color, depth_m, rgb, vol2cam, cam: Camera, grid: Grid, dt
     trunc = grid.trunc
     for z0 in range(0, Z, z_chunk):
         nz = min(z_chunk, Z - z0)
-        x, y, z = _chunk_voxels(grid, z0, nz, dt, dev)
+        x, y, z = _chunk_voxels(grid, z0, nz, dt, dev, lo, tsdf.shape)
         px, py, pz, u, v, inb = _project_chunk(x, y, z, vol2cam, cam)
         rng, valid, lin = _observed(depth_m, u, v, inb, cam)
         sdf = rng - torch.sqrt(px * px + py * py + pz * pz)
@@ -322,17 +328,20 @@ def fuse(tsdf, weight, color, depth_m, rgb, vol2cam, cam: Camera, grid: Grid, dt
         color[sl] = torch.where(cupd, pack(mixed), color[sl])
 
 
-def fuse_counts(depth_m, vol2cam, cam: Camera, grid: Grid, z_chunk: int = 16) -> Tuple[int, int]:
+def fuse_counts(depth_m, vol2cam, cam: Camera, grid: Grid, z_chunk: int = 16, lo=(0, 0, 0),
+                shape=None) -> Tuple[int, int]:
     """(voxels one frame updates, voxels whose colour it mixes): what
-    `fuse` writes, from the frame and its pose alone (float32)."""
+    `fuse` writes, from the frame and its pose alone (float32), in the
+    whole grid or in its box of `shape` [Z, Y, X] from voxel `lo`."""
     dt = torch.float32
     dev = depth_m.device
     vol2cam = vol2cam.to(dt)
     n_upd = torch.zeros((), dtype=torch.int64, device=dev)
     n_col = torch.zeros((), dtype=torch.int64, device=dev)
-    for z0 in range(0, grid.dims[2], z_chunk):
-        nz = min(z_chunk, grid.dims[2] - z0)
-        x, y, z = _chunk_voxels(grid, z0, nz, dt, dev)
+    Z = grid.dims[2] if shape is None else shape[0]
+    for z0 in range(0, Z, z_chunk):
+        nz = min(z_chunk, Z - z0)
+        x, y, z = _chunk_voxels(grid, z0, nz, dt, dev, lo, shape)
         px, py, pz, u, v, inb = _project_chunk(x, y, z, vol2cam, cam)
         rng, valid, _ = _observed(depth_m.to(dt), u, v, inb, cam)
         sdf = rng - torch.sqrt(px * px + py * py + pz * pz)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import bisect
 import collections
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 FRAME = "kfbench.frame"
 TRACE_DIR = Path(__file__).resolve().parent.parent / "build" / "kfbench"
@@ -72,7 +72,9 @@ def _events(prof):
              e.end_ns() * 1e-3) for e in prof.profiler.kineto_results.events()]
 
 
-def reduce(prof) -> dict:
+def reduce(prof, file: Optional[str] = "trace.json.gz") -> dict:
+    """The trace's reduction; the chrome trace is written to TRACE_DIR /
+    `file` (not at all where `file` is None)."""
     frames, device_ops, runtime = [], [], []
     for name, on_device, a, b in _events(prof):
         if name == FRAME:
@@ -127,9 +129,11 @@ def reduce(prof) -> dict:
     ctx.update(
         busy_s=busy_us * 1e-6, window_s=(w1 - w0) * 1e-6, launches=len(kernels),
         breakdown={"device_ops": [[n[:120], t * 1e-6] for n, t in top], "idle_gaps": idle})
+    if file is None:
+        return ctx
     try:
         TRACE_DIR.mkdir(parents=True, exist_ok=True)
-        path = TRACE_DIR / "trace.json.gz"
+        path = TRACE_DIR / file
         prof.export_chrome_trace(str(path))
         ctx["log"].append(f"chrome trace written to {path}")
     except Exception as exc:  # the trace file is for people; the metrics do not need it

@@ -53,14 +53,26 @@ def origins(st, pose_record: List[np.ndarray]) -> List:
     return out
 
 
-def ray_voxels(depth_m, cam2vol, st) -> tuple:
+def slab_of(st, rank: int, world: int, dim: int) -> tuple:
+    """(dim, lo, hi): the planes lo..hi-1 of the natural array dim `dim`
+    (0 = Z, 1 = Y) that rank `rank` of `world` holds."""
+    n = st.grid.dims[2 - dim] // world
+    return dim, rank * n, (rank + 1) * n
+
+
+def ray_voxels(depth_m, cam2vol, st, slab=None) -> tuple:
     """(distinct voxels sampled, samples) of the frame's raycast: unit
     steps from where each ray enters the box to the observed surface's
-    range, or to where it leaves the box."""
+    range, or to where it leaves the box. With `slab` (`slab_of`), those
+    of one slab: the samples whose voxel lies in it, a sample outside the
+    grid counted in the slab nearest to it."""
     g, cam = st.grid, st.cam
     dev = depth_m.device
     dt = torch.float32
     X, Y, Z = g.dims
+    a, lo, hi = (2, 0, Z) if slab is None else (2 - slab[0], slab[1], slab[2])
+    n_a = g.dims[a]
+    Xl, Yl, Zl = (hi - lo if i == a else g.dims[i] for i in range(3))
     vox = torch.tensor(g.voxel, dtype=dt, device=dev)
     box = torch.tensor([X * g.voxel[0], Y * g.voxel[1], Z * g.voxel[2]], dtype=dt, device=dev)
     org, dirs = K.camera_rays(cam2vol, cam, dt)
@@ -70,7 +82,7 @@ def ray_voxels(depth_m, cam2vol, st) -> tuple:
     rng = depth_m * lam
     t0 = torch.clamp(tn, min=0.0) + g.voxel[0]
     t_end = torch.where(rng > 0, torch.minimum(rng, tf), tf)
-    seen = torch.zeros(Z * Y * X, dtype=torch.bool, device=dev)
+    seen = torch.zeros(Zl * Yl * Xl, dtype=torch.bool, device=dev)
     samples = torch.zeros((), dtype=torch.int64, device=dev)
     steps = int(math.ceil(math.sqrt(sum((d * s) ** 2 for d, s in zip(g.dims, g.voxel)))
                           / g.voxel[0])) + 2
@@ -78,27 +90,53 @@ def ray_voxels(depth_m, cam2vol, st) -> tuple:
         t = t0 + k * g.voxel[0]
         live = t < t_end
         p = torch.round((org + dirs * t[..., None]) / vox).long()
-        inb = live & (p >= 0).all(-1) & (p[..., 0] < X) & (p[..., 1] < Y) & (p[..., 2] < Z)
-        seen[((p[..., 2] * Y + p[..., 1]) * X + p[..., 0])[inb]] = True
-        samples += live.sum()
+        pa = p[..., a].clamp(0, n_a - 1)
+        mine = live & (pa >= lo) & (pa < hi)
+        inb = mine & (p >= 0).all(-1) & (p[..., 0] < X) & (p[..., 1] < Y) & (p[..., 2] < Z)
+        q = p
+        if lo:
+            q = p.clone()
+            q[..., a] -= lo
+        seen[((q[..., 2] * Yl + q[..., 1]) * Xl + q[..., 0])[inb]] = True
+        samples += mine.sum()
     return int(seen.sum()), int(samples)
 
 
-def frame_work(st, depth_mm: np.ndarray, pose: np.ndarray, origin) -> dict:
+def frame_work(st, depth_mm: np.ndarray, pose: np.ndarray, origin, part=None,
+               device=None) -> dict:
     """{"bytes", "ops"} of one frame's work, from its raw depth, the
-    world-from-camera pose it was fused at, and its grid's origin."""
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    world-from-camera pose it was fused at, and its grid's origin. With
+    `part` (rank, world, dim), the work of one rank of the sharded step:
+    the whole measurement, its block of image rows in the ICP, its slab's
+    voxels (`slab_of`) and ray samples, and the whole maps written."""
+    dev = device or ("cuda" if torch.cuda.is_available() else "cpu")
     cam, cfg = st.cam, st.cfg
     ds, _, _ = K.measurement(torch.as_tensor(depth_mm.astype(np.float32), device=dev), cam, cfg,
                              torch.float32)
     T = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=dev)
     vp = st.vol_pose(origin, dev)
-    n_upd, n_col = K.fuse_counts(ds[0], torch.linalg.inv(T) @ vp, cam, st.grid)
-    n_vox, n_steps = ray_voxels(ds[0], torch.linalg.inv(vp) @ T, st)
-    px = [cam.level(lv).width * cam.level(lv).height for lv in range(cfg["pyramid_height"])]
-    iters = sum(p * n for p, n in zip(px, cfg["icp_iters"]))
+    levels = [cam.level(lv) for lv in range(cfg["pyramid_height"])]
+    px = [c.width * c.height for c in levels]
+    if part is None:
+        n_upd, n_col = K.fuse_counts(ds[0], torch.linalg.inv(T) @ vp, cam, st.grid)
+        n_vox, n_steps = ray_voxels(ds[0], torch.linalg.inv(vp) @ T, st)
+        px_icp = px
+    else:
+        rank, world, dim = part
+        slab = slab_of(st, rank, world, dim)
+        shape = [st.grid.dims[2], st.grid.dims[1], st.grid.dims[0]]
+        shape[dim] = slab[2] - slab[1]
+        lo = [0, 0, 0]
+        lo[2 - dim] = slab[1]
+        n_upd, n_col = K.fuse_counts(ds[0], torch.linalg.inv(T) @ vp, cam, st.grid, lo=lo,
+                                     shape=shape)
+        n_vox, n_steps = ray_voxels(ds[0], torch.linalg.inv(vp) @ T, st, slab)
+        # the row blocks of the sharded ICP: ceil(H / world) rows a rank
+        px_icp = [c.width * max(0, min(-(-c.height // world), c.height
+                                       - rank * -(-c.height // world))) for c in levels]
+    iters = sum(p * n for p, n in zip(px_icp, cfg["icp_iters"]))
     nbytes = (4 * px[0] + 24 * sum(px)          # measurement
-              + 48 * sum(px)                    # ICP
+              + 48 * sum(px_icp)                # ICP
               + 8 * n_upd + 8 * n_col           # fusion
               + 2 * n_vox + 24 * sum(px))       # raycast and the model pyramid
     ops = (OPS["icp_pixel_iteration"] * iters + OPS["fuse_update"] * n_upd
