@@ -156,7 +156,11 @@ Phases; any failure exits non-zero before the result line:
      most 0.1% of a face's rays may differ), on the orbit view and the six
      centre views; K1's one-iteration form on each of 4 row shards of every
      level, and their sum against the whole; CUDA-event times of the shard
-     forms beside the unsharded launches, and their bounds. Then 4 ranks
+     forms beside the unsharded launches, and their bounds. K3's shard form
+     where a sweep's planes pass 48 KB of shared memory: 4 Y slabs of
+     6144x16x256 (the cell shard.big-orbit's planes and voxel) fusing
+     frames 3 and 4, every face, bit for bit (also alone: --deep-slab).
+     Then 4 ranks
      on the card (gloo, "spawn" processes that load the kernels phase 2
      built) run the orbit's 50 frames Z-sharded and Y-sharded through the
      fused sharded step, and 10 frames Z-sharded with fused_mode="off":
@@ -211,7 +215,7 @@ Phases; any failure exits non-zero before the result line:
      each kernel's launches on every path this script drives, the sharded
      ones summed over the ranks), then the card, then the result line.
 
-Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs] [--graphs]
+Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs] [--graphs] [--deep-slab]
 """
 
 from __future__ import annotations
@@ -2695,6 +2699,98 @@ def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms:
     return res
 
 
+#: a rank's slab (Z planes, Y rows, X columns) of phase 4d's deep check: the
+#: Z planes of the cell shard.big-orbit's slabs at its voxel, 16 rows and
+#: 256 columns so that the plain version stays quick
+DEEP_SLAB = (6144, 16, 256)
+#: the planes a K3 sweep schedules in 48 KB of shared memory (20 B a plane);
+#: past them the launch opts in to the card's larger limit a block
+K3_DEFAULT_PLANES = 48 * 1024 // 20
+
+
+def check_deep_slab(frames, gts, params, intr, device) -> dict:
+    """Phase 4d, part 1b, in this process: K3's shard form against its
+    plain version where a sweep crosses more than K3_DEFAULT_PLANES planes,
+    on SHARD_RANKS Y slabs of DEEP_SLAB, a grid of the configuration's
+    voxel centred on the first camera's axis and 0.5 m ahead of it: each
+    slab with its origin folded into the pose, every face gated on, bit
+    for bit; frames[0] at gts[0] on the empty slabs, then frames[1] at
+    gts[1] on what the kernel fused. Fails unless the +-z sweeps (a plane
+    a Z plane) updated voxels. Returns the kernels line's "deep_slab":
+    {planes, voxels_updated, max_abs_err, ms, plain_ms} (ms: the +z sweep
+    of slab 1's second frame, CUDA events)."""
+    import torch
+
+    from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
+    from kinfu_tpu_torch.ops import face_integrate as fi
+    from kinfu_tpu_torch.ops import facewarp as fw
+    from kinfu_tpu_torch.volume.integrate import fold_shard_origin
+    from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume, pack_rgb
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms = cuda_ms if device.type == "cuda" else (lambda fn, **k: float("nan"))
+    nz, ny, nx = DEEP_SLAB
+    W = SHARD_RANKS
+    v = params.voxel_size[0]
+    p = params.replace(volume_dims=(nx, ny * W, nz), volume_range=(nx * v, ny * W * v, nz * v),
+                       volume_origin=(-nx * v / 2, -ny * W * v / 2, 0.5))
+    vs = p.voxel_size
+    volp = pose_from_matrix(torch.as_tensor(p.volume_pose, device=device))
+    fspec = fw.default_face_spec()
+    on = torch.ones((), dtype=torch.bool, device=device)
+    frames_sd = fw.face_frames(1)
+    slabs = [create_volume((nx, ny, nz), device=device) for _ in range(W)]
+    out = {"planes": nz, "voxels_updated": 0, "max_abs_err": 0, "ms": float("nan"),
+           "plain_ms": float("nan")}
+    deep_work = 0
+    for k, ((depth, color), T) in enumerate(zip(frames, gts)):
+        depth_m = torch.as_tensor(depth * np.float32(p.depth_scale), device=device)
+        col_packed = pack_rgb(torch.as_tensor(color, device=device))
+        cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
+        vol2cam = compose(inverse(cam), volp)
+        for r, slab in enumerate(slabs):
+            v2c = fold_shard_origin(vol2cam, r * ny, 1, vs)
+            geo = [fw.face_geometry(v2c, frm, (nx, ny, nz), vs) for frm in frames_sd]
+            prm6 = torch.stack([fw.face_params(A, intr, on, fspec) for A, _ in geo])
+            rk6, ck6, mk6 = fw.build_faces(depth_m, col_packed, prm6, fspec)
+            for f, frm in enumerate(frames_sd):
+                prm3 = fi.sweep_params(geo[f][1], fw.primed_voxel_size(frm, vs), fspec, p,
+                                       mk6[f].float(), on, prm6[f], intr)
+                dims_p = tuple(slab.tsdf.shape[a] for a in frm.axes)
+                table = fi.plane_table(fspec, prm3, dims_p)
+                vk = TSDFVolume(*(a.clone() for a in slab))
+                vp = TSDFVolume(*(a.clone() for a in slab))
+                fi.sweep_face(vk, frm, rk6[f], ck6[f], prm3, table)
+                n_upd = int(fi.sweep_face_plain(vp, frm, rk6[f], ck6[f], prm3, table)[0])
+                sync()
+                err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(vk, vp))
+                changed = int((vk.weight != slab.weight).sum())
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["voxels_updated"] += changed
+                if err or changed != n_upd:
+                    _fail(f"K3 deep slab {r} ({nz}x{ny}x{nx}), frame {k}, {frm.name} "
+                          f"{frm.axes}: kernel and plain version differ (max |diff| {err}, "
+                          f"{changed} against {n_upd} voxels updated)")
+                if dims_p[0] > K3_DEFAULT_PLANES:
+                    deep_work += changed
+                if (k, r, frm.name) == (1, 1, "+z"):
+                    out["ms"] = ms(lambda: fi.sweep_face(vk, frm, rk6[f], ck6[f], prm3, table))
+                    out["plain_ms"] = ms(lambda: fi.sweep_face_plain(vp, frm, rk6[f], ck6[f],
+                                                                     prm3, table),
+                                         reps=3, warmup=1)
+                del vp
+                slab = vk
+            slabs[r] = slab
+    if not deep_work:
+        _fail(f"K3 deep slab: no voxel updated by a sweep of more than {K3_DEFAULT_PLANES} "
+              f"planes, so the check tested nothing")
+    print(f"  K3 shard form on {W} Y slabs of {nz}x{ny}x{nx} (+-z sweeps of {nz} planes, "
+          f"{nz * 20} B of shared memory), 2 frames, every face: bit for bit, "
+          f"{out['voxels_updated']} voxel updates ({deep_work} by the +-z sweeps); +z sweep "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms", flush=True)
+    return out
+
+
 def _volume_gap(full: dict, ref: str) -> dict:
     """A gathered state (`unshard_state`) against the unsharded one saved
     at the path prefix `ref` (`save_states`): the share of voxels whose
@@ -3394,6 +3490,9 @@ def main() -> None:
     ap.add_argument("--graphs", action="store_true",
                     help="only run phase 5f (the step replayed from CUDA graphs against the "
                          "eager step, on the benchmark's cells) and exit, printing no result")
+    ap.add_argument("--deep-slab", action="store_true",
+                    help="only run phase 4d's K3 check on slabs of 6,144 planes (the shard "
+                         "form past 48 KB of shared memory) and exit, printing its result")
     ap.add_argument("--count-syncs", action="store_true",
                     help="only count the host syncs of a step (frames 2-5 of the orbit, "
                          "under sync-debug mode \"warn\"), with its launches and ms a "
@@ -3430,6 +3529,12 @@ def main() -> None:
     params, intr = configure()
     if args.graphs:
         run_graphs(device, smi)
+        return
+    if args.deep_slab:
+        frames, gt = orbit_frames(5, intr)
+        print("[4d] K3's shard form on slabs of 6,144 planes:", flush=True)
+        print(json.dumps({"deep_slab": check_deep_slab(frames[3:5], gt[3:5], params, intr,
+                                                       device), "card": smi}))
         return
     if args.count_syncs:
         frames, _ = orbit_frames(6, intr)
@@ -3589,6 +3694,7 @@ def main() -> None:
                                                        for tag, T in inside],
         params, intr, device, res["face_integrate"][1])
     del state
+    deep = check_deep_slab(frames[3:5], gt[3:5], params, intr, device)
     torch.cuda.empty_cache()
     print(f"  the shard forms' checks took {time.perf_counter() - t_4d:.1f} s", flush=True)
     SHARD_OUT.mkdir(parents=True, exist_ok=True)
@@ -3648,7 +3754,8 @@ def main() -> None:
          "plain_ms": shard_res[key][2], "bound_ms": shard_res[key][3],
          "bound_by": shard_res[key][4], "library_ms": None,
          "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()
-                              if p.startswith("sharded")}}
+                              if p.startswith("sharded")},
+         **({"deep_slab": deep} if key == "face_integrate" else {})}
         for key, name, src, rep in SHARD_KERNELS
     ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -64,8 +64,13 @@ constexpr int kTableCols = 9;  // dz, dzs, au, bu, av, bv, row_off, width, slab_
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-// slabs a block can schedule in 48 KB of shared memory (20 bytes each)
-constexpr int kMaxSlabs = 2048;
+// shared memory a block may take without opting in; a slab takes 20 bytes,
+// so up to 2,457 slabs fit (a 512^3 volume's +-z sweep has 512)
+constexpr size_t kSmemDefault = 48 * 1024;
+// devices whose opt-in this process tracks, and the dynamic shared memory
+// each has been opted in to so far (the kernel's attribute is a maximum)
+constexpr int kMaxDevices = 64;
+size_t g_smem_optin[kMaxDevices] = {};
 
 struct Footprint {
   int x_lo, x_hi, y_lo, y_hi;  // primed, inclusive; empty when a hi < its lo
@@ -374,14 +379,29 @@ extern "C" int kinfu_face_integrate(void* tsdf, void* weight, void* color, const
   }
   const int dims[3] = {nZ, nY, nX};
   const int n_slabs = x_sweeps ? (nX + 31) / 32 : dims[ax0];
-  if (n_slabs < 1 || n_slabs > kMaxSlabs || blocks < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_slabs < 1 || blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(n_slabs) * (sizeof(int4) + sizeof(unsigned));
-  int device = 0, sms = 0, per_sm = 0;
+  int device = 0, sms = 0, per_sm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const bool opted = device >= 0 && device < kMaxDevices && smem <= g_smem_optin[device];
+  if (err == cudaSuccess && smem > kSmemDefault && !opted) {
+    // more planes than 48 KB schedule (a 6144-plane slab takes 120 KB): opt
+    // in to the card's larger limit a block, as far as it goes, once a size
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess && smem + kWarps * sizeof(unsigned) > static_cast<size_t>(optin)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(face_integrate_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    }
+    if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
+      g_smem_optin[device] = smem;
+    }
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, face_integrate_kernel,

@@ -18,7 +18,9 @@ Every collective the step makes is an `all_reduce`, written once here:
     has one writer). NCCL and gloo have no int16 type, so the TSDF
     crosses as int32.
 `COLLECTIVES` counts the calls and bytes of each, as `kernels.LAUNCHES`
-counts launches.
+counts launches. While a profiler records, the halo exchange is the span
+`kinfu.shard.halo` and each collective the span `kinfu.shard.collective`,
+with its name and the bytes it reduces as the span's args.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from kinfu_tpu_torch.device import resolve_device
+from kinfu_tpu_torch.utils.profiling import span
 
 #: per collective: calls and bytes reduced, added to where it runs
 COLLECTIVES: collections.Counter = collections.Counter()
@@ -83,9 +86,11 @@ def close_mesh() -> None:
 
 
 def _all_reduce(name: str, x: torch.Tensor, op) -> torch.Tensor:
+    nbytes = x.numel() * x.element_size()
     COLLECTIVES[name] += 1
-    COLLECTIVES[name + "_bytes"] += x.numel() * x.element_size()
-    dist.all_reduce(x, op=op)
+    COLLECTIVES[name + "_bytes"] += nbytes
+    with span("kinfu.shard.collective", collective=name, bytes=nbytes):
+        dist.all_reduce(x, op=op)
     return x
 
 
@@ -111,15 +116,16 @@ def halo_exchange(mesh: Mesh, x: torch.Tensor, halo: int, dim: int) -> torch.Ten
     wire = torch.int32 if x.dtype == torch.int16 else x.dtype
     rows = list(x.shape)
     rows[dim] = halo
-    # slot [r, 0]: rank r's first rows, slot [r, 1]: its last rows
-    buf = torch.zeros((mesh.world, 2, *rows), dtype=wire, device=x.device)
-    buf[mesh.rank, 0] = x.narrow(dim, 0, halo)
-    buf[mesh.rank, 1] = x.narrow(dim, L - halo, halo)
-    _all_reduce("halo", buf, dist.ReduceOp.SUM)
-    zero = torch.zeros(rows, dtype=wire, device=x.device)
-    before = buf[mesh.rank - 1, 1] if mesh.rank > 0 else zero
-    after = buf[mesh.rank + 1, 0] if mesh.rank < mesh.world - 1 else zero
-    return torch.cat([before.to(x.dtype), x, after.to(x.dtype)], dim=dim)
+    with span("kinfu.shard.halo"):
+        # slot [r, 0]: rank r's first rows, slot [r, 1]: its last rows
+        buf = torch.zeros((mesh.world, 2, *rows), dtype=wire, device=x.device)
+        buf[mesh.rank, 0] = x.narrow(dim, 0, halo)
+        buf[mesh.rank, 1] = x.narrow(dim, L - halo, halo)
+        _all_reduce("halo", buf, dist.ReduceOp.SUM)
+        zero = torch.zeros(rows, dtype=wire, device=x.device)
+        before = buf[mesh.rank - 1, 1] if mesh.rank > 0 else zero
+        after = buf[mesh.rank + 1, 0] if mesh.rank < mesh.world - 1 else zero
+        return torch.cat([before.to(x.dtype), x, after.to(x.dtype)], dim=dim)
 
 
 def reset_collective_counts() -> None:

@@ -25,6 +25,12 @@ maps, frame count); every rank is given the whole frame. Per frame:
     picks one winning rank a pixel and broadcasts its shading with a
     masked `psum`.
 
+While a profiler records, each frame is the span `kinfu.shard.step`,
+holding the single-device step's stage spans (`kinfu.step.frontend`,
+`.icp`, `.integrate`, `.raycast`, `.reset`); inside them the halo exchange
+is `kinfu.shard.halo` and each collective `kinfu.shard.collective`
+(parallel/mesh.py).
+
 The fused update (`fused_update_local`) runs integrate, halo exchange and
 raycast under the same device face flags as the single-device fused step,
 which depend on the replicated rotation only, so every rank launches the
@@ -36,7 +42,6 @@ so the collectives themselves synchronise there.
 
 from __future__ import annotations
 
-import functools
 from collections.abc import Mapping
 from typing import Tuple
 
@@ -70,6 +75,7 @@ from kinfu_tpu_torch.pipeline.kinfu import _finite_pose, step_with
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput, state_from_numpy
 from kinfu_tpu_torch.ops.icp_warped import icp_normal_eqs_warped
 from kinfu_tpu_torch.tracking.icp import ICPResult, _normal_equations, icp_loop, resolve_icp_mode
+from kinfu_tpu_torch.utils.profiling import span
 from kinfu_tpu_torch.volume.integrate import fold_shard_origin, integrate
 from kinfu_tpu_torch.volume.raycast import (
     _INF,
@@ -267,15 +273,19 @@ def fused_update_local(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.
     R = torch.where(pose_ok, R, torch.eye(3, dtype=R.dtype, device=R.device))
     org = torch.where(pose_ok, org, torch.zeros_like(org))
 
-    gates = faces_needed(vol2cam, intr) & good
-    z_offset = vol.tsdf.shape[sd] * mesh.rank
-    integrate_faces(vol, depth_m, pack_rgb(color_rgb),
-                    fold_shard_origin(vol2cam, z_offset, sd, params.voxel_size), intr, params,
-                    default_face_spec(), gates, shard_dim=sd)
-    vertex, normal, valid = _composite_local(vol.tsdf, cam2vol, intr, params, mesh, gates)
-    for a in vol:
-        a.mul_(good.to(a.dtype))
-    return (vol, *_to_camera(vertex, normal, valid, R, org))
+    with span("kinfu.step.integrate"):
+        gates = faces_needed(vol2cam, intr) & good
+        z_offset = vol.tsdf.shape[sd] * mesh.rank
+        integrate_faces(vol, depth_m, pack_rgb(color_rgb),
+                        fold_shard_origin(vol2cam, z_offset, sd, params.voxel_size), intr,
+                        params, default_face_spec(), gates, shard_dim=sd)
+    with span("kinfu.step.raycast"):
+        vertex, normal, valid = _composite_local(vol.tsdf, cam2vol, intr, params, mesh, gates)
+        vmap, nmap = _to_camera(vertex, normal, valid, R, org)
+    with span("kinfu.step.reset"):
+        for a in vol:
+            a.mul_(good.to(a.dtype))
+    return vol, vmap, nmap
 
 
 def resolve_raycast_mode(params: KinFuParams, local_shape, mesh: Mesh, device) -> str:
@@ -299,14 +309,17 @@ def update_local(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Tensor
     `resolve_raycast_mode`, both gated by `good`, then the reset on a
     failed frame."""
     sd = mesh.shard_dim
-    integrate(vol, depth_m, color_rgb, vol2cam, intr, params,
-              z_offset=vol.tsdf.shape[sd] * mesh.rank, shard_dim=sd, gate=good)
+    with span("kinfu.step.integrate"):
+        integrate(vol, depth_m, color_rgb, vol2cam, intr, params,
+                  z_offset=vol.tsdf.shape[sd] * mesh.rank, shard_dim=sd, gate=good)
     raycast = (sharded_raycast_warped
                if resolve_raycast_mode(params, vol.tsdf.shape, mesh, vol.tsdf.device) == "warped"
                else sharded_raycast)
-    rv, rn = raycast(vol.tsdf, _finite_pose(cam2vol), intr, params, mesh, gate=good)
-    for a in vol:
-        a.mul_(good.to(a.dtype))
+    with span("kinfu.step.raycast"):
+        rv, rn = raycast(vol.tsdf, _finite_pose(cam2vol), intr, params, mesh, gate=good)
+    with span("kinfu.step.reset"):
+        for a in vol:
+            a.mul_(good.to(a.dtype))
     return vol, rv, rn
 
 
@@ -367,9 +380,15 @@ def kinfu_step_local(state: KinFuState, depth_mm: torch.Tensor, color_rgb: torch
 
 
 def make_sharded_step_fn(params: KinFuParams, intr: Intrinsics, mesh: Mesh):
-    """The rank's step with its configuration and mesh bound
-    (sharded.py:735-755; the JAX package jits a `shard_map` of it)."""
-    return functools.partial(kinfu_step_local, params=params, intr=intr, mesh=mesh)
+    """The rank's step `step(state, depth_mm, color_rgb)` with its
+    configuration and mesh bound (sharded.py:735-755; the JAX package jits
+    a `shard_map` of it), each call inside the span `kinfu.shard.step`."""
+
+    def step(state: KinFuState, depth_mm: torch.Tensor, color_rgb: torch.Tensor):
+        with span("kinfu.shard.step"):
+            return kinfu_step_local(state, depth_mm, color_rgb, params, intr, mesh)
+
+    return step
 
 
 def init_state_local(params: KinFuParams, intr: Intrinsics, mesh: Mesh) -> KinFuState:

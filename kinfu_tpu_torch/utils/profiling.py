@@ -1,9 +1,10 @@
 """Profiling helpers on torch.profiler and CUDA events (port of
 kinfu_tpu/utils/profiling.py, which wraps jax.profiler).
 
-  - `span(name, frame=None)`: a named range of the program (the session's
-    and the step's stages), recorded on the host's timeline while a torch
-    profiler records, and the shared null context otherwise;
+  - `span(name, frame=None, **args)`: a named range of the program (the
+    session's and the step's stages, the sharded step's exchanges),
+    recorded on the host's timeline while a torch profiler records, and
+    the shared null context otherwise;
   - `cut_at_spans(cuts)`: while it is open, each outermost span calls
     `cuts` at its boundaries instead (`Cuts`; the CUDA graph capture of
     the step cuts its work there, pipeline/graphed.py);
@@ -39,13 +40,14 @@ def profiler_enabled() -> bool:
     return _autograd_profiler._is_profiler_enabled
 
 
-def span(name: str, frame=None):
+def span(name: str, frame=None, **args):
     """A context manager around one stage of the program, named `name`.
 
     While a profiler records it is a host range of the profiler (torch's
     `_RecordFunctionFast`, a "cpu_op" event of the Chrome trace) on the
-    trace's own clock, with {"frame": frame} as its args where given (the
-    trace shows them under `record_shapes=True`); each device operation
+    trace's own clock, with {"frame": frame} and `args` (counters such as
+    the bytes a collective moves) as its args where given (the trace
+    shows them under `record_shapes=True`); each device operation
     ties to the span that launched it through its launch call's
     `correlation` id. Not `torch.profiler.record_function`: kineto copies
     a user annotation onto the device's timeline as well, where it reads
@@ -57,9 +59,11 @@ def span(name: str, frame=None):
         return _cuts.span(name)
     if not profiler_enabled():
         return _OFF
-    if frame is None:  # torch aborts on keyword_values=None
+    if frame is not None:
+        args["frame"] = frame
+    if not args:  # torch aborts on keyword_values=None
         return _RecordFunctionFast(name)
-    return _RecordFunctionFast(name, keyword_values={"frame": frame})
+    return _RecordFunctionFast(name, keyword_values=args)
 
 
 class Cuts:
