@@ -126,10 +126,17 @@ Phases; any failure exits non-zero before the result line:
      poses before the first shift are the fixed volume's bit for bit, and
      within 1e-4 m of them on the frames after it; shift_volume on the
      last volume equals a slice copy on the card (and the CPU's
-     shift_volume) bit for bit, for a shift along each axis; the
+     shift_volume) bit for bit, for a shift along each axis; S1, the
+     in-place shift kernel (csrc/shift_volume.cu, `shift_volume_`), on a
+     copy of that volume and of a 1037x7x5 one (X odd, several chunks of
+     its x pass) equals shift_volume on the card bit for bit for
+     +-1..3 voxels along each axis, a three-axis shift, zero and two wipes,
+     3 launches a call, its counter counting the calls and the moves, and
+     is timed replayed from a CUDA graph beside its byte bound (also alone,
+     on a seeded random 512^3 volume: --shift); the
      aligned ATE is <= 1 mm (or within 1.1x the fixed volume's where that
      exceeds 1 mm); K1 launches 19 times a frame, K2 and K5 once, K3 and K4
-     six times; the streaming step makes no host sync ("warn"); the
+     six times, S1 three; the streaming step makes no host sync ("warn"); the
      non-fused run gives the fused one's grid offsets and its poses within
      1e-4 m; the session gives the step's poses and offset, a point cloud
      inside the moved volume, a 3D view and a checkpoint that loads with
@@ -189,9 +196,9 @@ Phases; any failure exits non-zero before the result line:
      device time and launches of the ICP of a frame alone, one host call
      against one-iteration launches with the eager finish; then 8 steps of
      the corner orbit where two faces are live (frames 20-27); then 8 steps
-     of the non-fused orbit, one relocalize_step call, 8 steps of the
-     streaming corridor over frames where the grid shifts (90-97), and one
-     grid shift alone;
+     of the non-fused orbit, one relocalize_step call, and 8 steps of the
+     streaming corridor over frames where the grid shifts (90-97) (S1's
+     own time is phase 5e's);
   7. the sanitizer pass (kinfu_tpu_torch/tools/sanitize.py) in child
      processes, in the bounds-checked build of the kernels that phase 2
      built beside the normal one (compute-sanitizer refuses this card's
@@ -216,6 +223,7 @@ Phases; any failure exits non-zero before the result line:
      ones summed over the ranks), then the card, then the result line.
 
 Usage: python3 chip_smoke.py [--profile-table PATH] [--count-syncs] [--graphs] [--deep-slab]
+                            [--shift]
 """
 
 from __future__ import annotations
@@ -1736,6 +1744,24 @@ SHIFTED_POSE_TOL = 1e-4
 #: (sx, sy, sz) shifts that `check_shift` holds shift_volume to on the
 #: card: each axis in both directions, and one past the far side
 SHIFT_CHECKS = ((0, 0, 2), (3, -1, -2), (-5, 4, 0), (0, 600, 0))
+#: the kernel the port adds for the streaming shift: (launch-count key,
+#: name, source, what it replaces)
+SHIFT_KERNEL = ("shift_volume", "S1 shift_volume", "kinfu_tpu_torch/csrc/shift_volume.cu",
+                "no TPU kernel: kinfu_tpu/volume/stream.py:24-47 rolls and masks outside Pallas")
+#: (sx, sy, sz) shifts that `check_shift_kernel` holds S1 to its plain twin
+#: on: 1-3 voxels each way along each axis, all three axes at once, zero,
+#: and past the far side (a wipe)
+SHIFT_KERNEL_CHECKS = tuple(
+    tuple(d * k if i == axis else 0 for i in range(3))
+    for axis in range(3) for k in (1, 2, 3) for d in (1, -1)) + (
+    (2, -3, 1), (0, 0, 0), (0, 600, 0), (-600, 5, 0))
+#: (X, Y, Z) of the second volume S1 is checked on: X odd (the kernel's
+#: y and z passes then move one voxel a thread, not two) and more than one
+#: 512-voxel chunk of its x pass
+SHIFT_ODD_DIMS = (1037, 7, 5)
+#: the in-place shifts that `check_shift_kernel` times, each captured in a
+#: CUDA graph as the step replays it: one axis each, two axes, none
+SHIFT_TIMED = ((0, 0, 2), (0, 2, 0), (2, 0, 0), (2, 2, 0), (0, 0, 0))
 
 
 def corridor_frames(n: int, intr):
@@ -1759,18 +1785,94 @@ def shift_frames(origins) -> list:
     return out
 
 
-def time_shift(vol, device) -> tuple:
-    """(ms, bound ms) of `shift_volume` on `vol` by (0, 0, 2) voxels: CUDA
-    events around one call (median of 10; host time included), and the
-    least time to read the volume once and write the shifted one."""
+def random_volume(dims_xyz, device, seed: int = 20):
+    """A volume of `dims_xyz` whose voxels take every value of their type's
+    range (the TSDF), 0-64 (the weight) and 24 bits (the colour), seeded."""
     import torch
 
-    from kinfu_tpu_torch.volume.stream import shift_volume
+    from kinfu_tpu_torch.volume.tsdf import TSDFVolume
 
-    shift = torch.zeros(3, dtype=torch.int32, device=device)
-    shift[2] = 2
-    ms = cuda_ms(lambda: shift_volume(vol, shift)) if device.type == "cuda" else float("nan")
-    return ms, bound(2 * nbytes(*vol), 0)[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = tuple(reversed(dims_xyz))
+
+    def draw(lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32,
+                             device=device).to(dtype)
+
+    return TSDFVolume(draw(-32768, 32768, torch.int16), draw(0, 65, torch.int16),
+                      draw(0, 1 << 24, torch.int32))
+
+
+def check_shift_kernel(vol, device) -> dict:
+    """S1 (`shift_volume_`, csrc/shift_volume.cu) in place on a copy of
+    `vol`, and of a seeded volume of SHIFT_ODD_DIMS, against its plain twin
+    `shift_volume` on the card, bit for bit, for each of
+    SHIFT_KERNEL_CHECKS: the copy keeps its tensors, S1 makes 3 launches a
+    call and its counter counts every call and the calls that move. Then
+    each of SHIFT_TIMED on a copy of `vol`, captured in a CUDA graph as the
+    step replays it, timed by CUDA events (median of 10 replays), beside
+    the byte bound (the volume read and written once) and one call of the
+    twin. Fails on any difference. Returns the kernels line's record."""
+    import torch
+
+    from kinfu_tpu_torch.ops import kernels
+    from kinfu_tpu_torch.volume.stream import shift_volume, shift_volume_
+    from kinfu_tpu_torch.volume.tsdf import TSDFVolume
+
+    key = SHIFT_KERNEL[0]
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    before = kernels.LAUNCHES[key]
+    differ = 0
+    for v in (vol, random_volume(SHIFT_ODD_DIMS, device)):
+        for s in SHIFT_KERNEL_CHECKS:
+            shift = torch.tensor(s, dtype=torch.int32, device=device)
+            want = shift_volume(v, shift)
+            got = TSDFVolume(*(a.clone() for a in v))
+            ptrs = [a.data_ptr() for a in got]
+            if shift_volume_(got, shift, counts) is not got or \
+                    [a.data_ptr() for a in got] != ptrs:
+                _fail(f"{SHIFT_KERNEL[1]} by {s} did not shift the volume it was given")
+            for name, g, w in zip(TSDFVolume._fields, got, want):
+                if not torch.equal(g, w):
+                    differ += 1
+                    print(f"    {SHIFT_KERNEL[1]} by {s} on {tuple(v.tsdf.shape)}: {name} "
+                          f"differs from shift_volume's on {int((g != w).sum())} voxels",
+                          flush=True)
+            del want, got
+    launches = kernels.LAUNCHES[key] - before
+    n, moved = 2 * len(SHIFT_KERNEL_CHECKS), 2 * sum(any(s) for s in SHIFT_KERNEL_CHECKS)
+    if differ:
+        _fail(f"{SHIFT_KERNEL[1]} differs from its plain twin on {differ} arrays")
+    if launches != 3 * n or counts.tolist() != [n, moved]:
+        _fail(f"{SHIFT_KERNEL[1]}: {launches} launches for {n} calls (want {3 * n}), counter "
+              f"{counts.tolist()} (want {[n, moved]})")
+    work = TSDFVolume(*(a.clone() for a in vol))
+    ms = {}
+    for s in SHIFT_TIMED:
+        shift = torch.tensor(s, dtype=torch.int32, device=device)
+        shift_volume_(work, shift, counts)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            shift_volume_(work, shift, counts)
+        ms[str(s)] = cuda_ms(graph.replay)
+        del graph
+    z2 = torch.tensor(SHIFT_TIMED[0], dtype=torch.int32, device=device)
+    plain_ms = cuda_ms(lambda: shift_volume(work, z2))
+    del work
+    bound_ms, bound_by = bound(2 * nbytes(*vol), 0)
+    return {"max_abs_err": 0.0, "ms": ms[str(SHIFT_TIMED[0])], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_by_shift": ms,
+            "shifts_checked": n, "launches_checked": launches}
+
+
+def print_shift_kernel(res: dict, dims, smi: str) -> None:
+    by = ", ".join(f"{s} {v:.4f}" for s, v in res["ms_by_shift"].items())
+    print(f"    {SHIFT_KERNEL[1]} equal to shift_volume on the card bit for bit on "
+          f"{res['shifts_checked']} shifts of a {dims} and a {SHIFT_ODD_DIMS} volume (+-1..3 "
+          f"voxels along each axis, three axes, zero, two wipes), {res['launches_checked']} "
+          f"launches; in place, "
+          f"replayed from a CUDA graph, ms by shift: {by} (bound {res['bound_ms']:.4f} ms, "
+          f"{res['bound_by']}); shift_volume {res['plain_ms']:.4f} ms  [{smi}]", flush=True)
 
 
 def shift_plain(a, s):
@@ -1829,14 +1931,16 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
     shift_volume on (b)'s last volume agrees bit for bit with its slice
     copy and with the CPU (`check_shift`); (b)'s aligned ATE is <= 1 mm (or, where (a)'s exceeds
     that, within (a)'s x STREAM_ATE_FACTOR); (b) and (c) launch K1 19 times
-    a frame, K2 and K5 once, K3 and K4 six times; the streaming step makes
+    a frame, K2 and K5 once, K3 and K4 six times, S1 three; the step makes
     no host sync (counted under "warn"); (c) gives (b)'s grid offsets and
     its poses within NONFUSED_POSE_TOL; the session gives (b)'s poses and
     grid offset, a point cloud inside the moved volume, a 3D view, and a
     checkpoint that loads with its offset and tracks the next frame.
     Prints the frames where the grid shifted, the time of one shift beside
-    its bound and ms/frame beside the orbit's `orbit_ms`. Returns (the
-    launches of (b), (c) and (d) by path, (b)'s ms/frame)."""
+    its bound and ms/frame beside the orbit's `orbit_ms`; holds S1 to its
+    twin on (b)'s last volume and times it (`check_shift_kernel`). Returns
+    (the launches of (b), (c) and (d) by path, (b)'s ms/frame, S1's
+    record)."""
     import torch
 
     from kinfu_tpu_torch.eval.ate import ate_rmse
@@ -1848,7 +1952,7 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
     t_5e = time.perf_counter()
     n = len(frames) - 1
     per_frame = {"icp_normal_eqs": 19 * n, "build_face": n, "resample_face": n,
-                 "face_integrate": 6 * n, "sweep_rays": 6 * n}
+                 "face_integrate": 6 * n, "sweep_rays": 6 * n, SHIFT_KERNEL[0]: 3 * n}
     print(f"[5e] streaming volume: the corridor ({n} frames, {CORRIDOR_STEP[2] * 1e3:g} mm a "
           f"frame along +z) through the fixed volume, streaming_step fused and non-fused, "
           f"and KinFuSession(streaming=True)", flush=True)
@@ -1877,8 +1981,8 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
     ms_frame = float(np.median(frame_ms[2:])) if frame_ms is not None else float("nan")
     ms_shifting = (float(np.median(frame_ms[first:])) if frame_ms is not None and first < n
                    else float("nan"))
-    shift_ms, shift_bound = time_shift(state.kinfu.vol, device)
     shift_checked = check_shift(state.kinfu.vol, device)
+    s1 = check_shift_kernel(state.kinfu.vol, device)
     del state
     _empty_cache(device)
     print(f"    (b) streaming_step, fused, each step under sync-debug mode \"error\": tracked "
@@ -1893,9 +1997,9 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
     print(f"    shift_volume on the card equal to its slice copy (and the CPU's, for the "
           f"first) bit for bit, on (b)'s last volume shifted by {shift_checked}", flush=True)
     print(f"    {ms_frame:.3f} ms/frame (median of frames 2-{n - 1}, CUDA events; the orbit "
-          f"{orbit_ms:.3f}), {ms_shifting:.3f} ms/frame over frames {first}-{n - 1}; one "
-          f"shift_volume of the volume {shift_ms:.4f} ms (CUDA events, bound "
-          f"{shift_bound:.4f} ms, bytes) on {smi}", flush=True)
+          f"{orbit_ms:.3f}), {ms_shifting:.3f} ms/frame over frames {first}-{n - 1} on {smi}",
+          flush=True)
+    print_shift_kernel(s1, tuple(params.volume_dims), smi)
     print(f"    launches a frame: { {k: v / n for k, v in sorted(launches.items())} }",
           flush=True)
     if not oks[1:].all() or not np.isfinite(poses).all():
@@ -1975,28 +2079,7 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
                 _fail(f"{name} was not launched on the path {path}")
     print(f"  phase 5e took {time.perf_counter() - t_5e:.1f} s", flush=True)
     return {"streaming": launches, "streaming_non_fused": nf_launches,
-            "streaming_session": s_launches}, ms_frame
-
-
-def profile_shift(params, device, n: int = 4) -> None:
-    """Phase 6, the grid shift alone: device time and launches of one
-    `shift_volume` call (by (0, 0, 2) voxels; a zero shift runs the same
-    operations) on a volume of the workload's size, over `n` calls."""
-    import torch
-
-    from kinfu_tpu_torch.tools.trace_step import profile
-    from kinfu_tpu_torch.volume.stream import shift_volume
-    from kinfu_tpu_torch.volume.tsdf import create_volume
-
-    vol = create_volume(params.volume_dims, device=device)
-    shift = torch.zeros(3, dtype=torch.int32, device=device)
-    shift[2] = 2
-    shift_volume(vol, shift)
-    torch.cuda.synchronize()
-    prof = profile(lambda: shift_volume(vol, shift), n, device)
-    print(f"    shift_volume, one call on {tuple(vol.tsdf.shape)}: device {prof.busy_ms:.4f} ms "
-          f"in {prof.count:.0f} launches (bound {bound(2 * nbytes(*vol), 0)[0]:.4f} ms, bytes)",
-          flush=True)
+            "streaming_session": s_launches}, ms_frame, s1
 
 
 # ---- phase 4e: the march raycasts (M1, M2) --------------------------------
@@ -3243,7 +3326,7 @@ def run_sanitizer(smi: str) -> None:
     bounds-checked build of the kernels (compute-sanitizer refuses this
     card's machine): every kernel form at the main path's shapes and at
     test scale, each run ending without a fault and launching each of the
-    five kernels and M1 and M2; then the negative run, K5 with an output one row short,
+    five kernels, M1, M2 and S1; then the negative run, K5 with an output one row short,
     which must trap, or the check is not live."""
     from kinfu_tpu_torch.tools import sanitize
 
@@ -3255,7 +3338,7 @@ def run_sanitizer(smi: str) -> None:
             print(r["output"][-4000:], flush=True)
             _fail(f"the checked build's run at scale {scale} failed (a kernel indexed outside "
                   f"its arrays: {r['trap']})")
-        for key, name, *_ in KERNELS + MARCH_KERNELS:
+        for key, name, *_ in KERNELS + MARCH_KERNELS + (SHIFT_KERNEL,):
             if r["launches"].get(key, 0) <= 0:
                 _fail(f"{name} was not launched in the checked build's run at scale {scale}")
     r = sanitize.run_child(negative=True, timeout=SANITIZE_TIMEOUT)
@@ -3300,7 +3383,7 @@ def run_repeat(smi: str) -> dict:
         _fail("the repeat-launch run failed")
     if bad:
         _fail(f"kernel forms whose repeated launches differ: {bad}")
-    for key, name, *_ in KERNELS + MARCH_KERNELS:
+    for key, name, *_ in KERNELS + MARCH_KERNELS + (SHIFT_KERNEL,):
         if r["launches"].get(key, 0) <= 0:
             _fail(f"{name} was not launched in the repeat-launch run")
     return records
@@ -3493,6 +3576,10 @@ def main() -> None:
     ap.add_argument("--deep-slab", action="store_true",
                     help="only run phase 4d's K3 check on slabs of 6,144 planes (the shard "
                          "form past 48 KB of shared memory) and exit, printing its result")
+    ap.add_argument("--shift", action="store_true",
+                    help="only run phase 5e's check of S1, the in-place shift kernel, against "
+                         "its plain twin on a seeded random 512^3 volume and its times, and "
+                         "exit, printing its result")
     ap.add_argument("--count-syncs", action="store_true",
                     help="only count the host syncs of a step (frames 2-5 of the orbit, "
                          "under sync-debug mode \"warn\"), with its launches and ms a "
@@ -3535,6 +3622,12 @@ def main() -> None:
         print("[4d] K3's shard form on slabs of 6,144 planes:", flush=True)
         print(json.dumps({"deep_slab": check_deep_slab(frames[3:5], gt[3:5], params, intr,
                                                        device), "card": smi}))
+        return
+    if args.shift:
+        print("[5e] S1, the in-place shift kernel, against shift_volume:", flush=True)
+        s1 = check_shift_kernel(random_volume(params.volume_dims, device), device)
+        print_shift_kernel(s1, tuple(params.volume_dims), smi)
+        print(json.dumps({"shift_volume": s1, "card": smi}))
         return
     if args.count_syncs:
         frames, _ = orbit_frames(6, intr)
@@ -3675,8 +3768,8 @@ def main() -> None:
     corridor, corridor_gt = corridor_frames(CORRIDOR_FRAMES + 1, intr)
     print(f"    rendered {CORRIDOR_FRAMES + 1} corridor frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    stream_launches, stream_ms = run_streaming(corridor, corridor_gt, params, intr, device, smi,
-                                               ms_frame)
+    stream_launches, stream_ms, s1 = run_streaming(corridor, corridor_gt, params, intr, device,
+                                                   smi, ms_frame)
     torch.cuda.empty_cache()
     run_graphs(device, smi)
 
@@ -3725,7 +3818,6 @@ def main() -> None:
     profile_steps(corridor, params, intr, device, str(Path(table).with_suffix(".streaming.txt")),
                   stream_ms, n=STREAM_PROFILE[1], first=STREAM_PROFILE[0],
                   label="streaming corridor (the grid shifts)", icp=False, streaming=True)
-    profile_shift(params, device)
     torch.cuda.empty_cache()
     run_sanitizer(smi)
     run_repeat(smi)
@@ -3766,6 +3858,11 @@ def main() -> None:
          **({"slab_form": dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"),
                                    m_res["march_slab"]))} if key == "march_rays" else {})}
         for (key, name, src, rep), leg in zip(MARCH_KERNELS, ("march_step", "march_hier"))
+    ] + [
+        {"name": SHIFT_KERNEL[1], "route": "cuda", "source": SHIFT_KERNEL[2],
+         "replaces": SHIFT_KERNEL[3], "launches": int(stream_launches["streaming"][SHIFT_KERNEL[0]]),
+         **s1, "library_ms": None,
+         "launches_by_path": {p: int(v.get(SHIFT_KERNEL[0], 0)) for p, v in paths.items()}}
     ]}
     print(json.dumps(summary))
     print(f"{smi}")

@@ -71,10 +71,11 @@ def fused_update(
     zeros where `good` (a device bool) is False; the volume is then reset
     when reset_on_fail, else kept for a relocalizer.
 
-    `pre`, if given, maps the (tsdf, weight, colour) tuple to a new tuple
-    before the sweeps (the streaming grid shift, pipeline/streaming.py;
-    L79-85); the update then runs in place on the new tensors, and they
-    are the volume returned. The JAX fail branch skips `pre` (L197-211);
+    `pre`, if given, maps the (tsdf, weight, colour) tuple to a tuple
+    before the sweeps (the streaming grid shift, pipeline/streaming.py,
+    which gives back the same tensors shifted in place; L79-85); the update
+    then runs in place on the tensors it returns, and they are the volume
+    returned. The JAX fail branch skips `pre` (L197-211);
     here it always runs, so a caller whose `pre` must not act on a failed
     frame gates it with `good` itself."""
     if pre is not None:

@@ -8,9 +8,10 @@ depth in front of the camera stays inside the volume's central box. The
 step is the fixed-volume step's body (`pipeline/kinfu.py::step_with`) with
 that placement: the shift is a device tensor, so nothing waits for the
 device. On the fused path the shift is `fused_update`'s `pre` hook; on the
-non-fused path it runs before the integrate and raycast dispatchers. On
-the card both run on the kernels K1-K5; the shift is plain PyTorch, as the
-JAX package computes it outside any Pallas kernel.
+non-fused path it runs before the integrate and raycast dispatchers. Both
+shift the state's volume in place (`shift_volume_`): on the card the step
+runs on the kernels K1-K5 and the shift on S1 (csrc/shift_volume.cu),
+which the JAX package computes outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from kinfu_tpu_torch.pipeline.kinfu import _update, init_state, step_with
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
 from kinfu_tpu_torch.tracking.icp import rigid_icp
 from kinfu_tpu_torch.utils.profiling import span
-from kinfu_tpu_torch.volume.stream import camera_centering_shift, shift_volume
+from kinfu_tpu_torch.volume.stream import camera_centering_shift, shift_volume_
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume
 
 
@@ -80,8 +81,8 @@ def streaming_step(
     camera: a forward-looking sensor needs the volume ahead of it) inside
     the central box [margin, range - margin] of each axis; a failed frame
     wipes the map and returns the grid to the configured origin. The step
-    updates the volume it is given in place after the shift, which makes
-    new tensors."""
+    shifts and updates the volume it is given in place: the state's volume
+    tensors are the new state's."""
     ks = state.kinfu
     dev = ks.vol.tsdf.device
     placed = {}
@@ -105,9 +106,9 @@ def streaming_step(
         shift = torch.where(good, placed["shift"], 0)
         if fused_supported(vol.tsdf.shape, params, dev):
             return fused_update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
-                                pre=lambda arrs: tuple(shift_volume(TSDFVolume(*arrs), shift)))
+                                pre=lambda arrs: tuple(shift_volume_(TSDFVolume(*arrs), shift)))
         with span("kinfu.step.shift"):
-            vol = shift_volume(vol, shift)
+            vol = shift_volume_(vol, shift)
         return _update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good)
 
     ks_n, out = step_with(ks, depth_mm, params, intr, track, update, place=place)

@@ -2,14 +2,14 @@
 
 Three parts:
 
-(a) On the card: every form of the five CUDA kernels (K1-K5) and of the
-    march kernels (M1, M2) runs in the bounds-checked build of csrc/
-    (`-DKINFU_CHECKED -lineinfo`, csrc/checked.cuh), in which every global
-    load and store of a kernel traps on an index outside the array that
-    the wrapper passed, and the launch then fails at the next
-    synchronisation. The array lengths are the tensors' numel, so an
-    overrun is caught even where it would land inside another tensor of
-    PyTorch's caching allocator.
+(a) On the card: every form of the five CUDA kernels (K1-K5), of the
+    march kernels (M1, M2) and of the shift (S1) runs in the bounds-checked
+    build of csrc/ (`-DKINFU_CHECKED -lineinfo`, csrc/checked.cuh), in
+    which every global load and store of a kernel traps on an index
+    outside the array that the wrapper passed, and the launch then fails
+    at the next synchronisation. The array lengths are the tensors' numel,
+    so an overrun is caught even where it would land inside another tensor
+    of PyTorch's caching allocator.
 
         python -m kinfu_tpu_torch.tools.sanitize --scale main|test
         python -m kinfu_tpu_torch.tools.sanitize --negative
@@ -24,9 +24,10 @@ Three parts:
     K2 left unwritten, and on an interior Z slab and Y slab (the Y slab's
     +-x faces in the (2, 1, 0) frame); K4 on each face and on the
     halo-padded Z and Y slabs; K5's six-face composite; M1 on the volume
-    and in its Z-slab form, and M2; all on the volume and model maps of 3
-    frames of the fused orbit and on frame 3. Then the corner orbit up to
-    its first frame with two live faces. It prints each kernel's launches
+    and in its Z-slab form, and M2; S1 in place by one axis each way, by
+    three axes, by none and past the far side; all on the volume and model
+    maps of 3 frames of the fused orbit and on frame 3. Then the corner
+    orbit up to its first frame with two live faces. It prints each kernel's launches
     (`ops/kernels.py`'s counts) on its last line as `launches {json}`.
     `--negative` calls K5's C entry directly with a vertex buffer one row
     short, which must trap; a run that ends without a fault prints
@@ -45,16 +46,16 @@ Three parts:
     every launch must give the first launch's bits. K1's ticket cannot
     take a sentinel (each launch's last block resets it to 0 for the
     next), so it must read 0 after each launch. K3 updates its volume in
-    place: each launch starts from the same volume. K1 (every form) and K3
-    launch N times more on a second grid (K1_GRID2 blocks at most, a
-    K3_GRID2-block persistent grid): K3 must give the same bits; K1, whose
-    block partition orders its sums, one iteration's counts and floats
-    within K1_TOL of their largest entry (`k1_close`), and the finishing
-    form, whose 19 iterations carry the order's rounding into the pose and
-    the later counts, the rule of K1's row shards (`k1_finish_close`). A
-    race that a launch's timing decides,
-    a read of an output before it is written, or an output element left
-    unwritten shows as other bits. The second-to-last line is
+    place, and so does S1: each launch starts from the same volume. K1
+    (every form) and K3 launch N times more on a second grid (K1_GRID2
+    blocks at most, a K3_GRID2-block persistent grid): K3 must give the
+    same bits; K1, whose block partition orders its sums, one iteration's
+    counts and floats within K1_TOL of their largest entry (`k1_close`),
+    and the finishing form, whose 19 iterations carry the order's rounding
+    into the pose and the later counts, the rule of K1's row shards
+    (`k1_finish_close`). A race that a launch's timing decides, a read of
+    an output before it is written, or an output element left unwritten
+    shows as other bits. The second-to-last line is
     `repeat {json}`, a record per form.
 
     `run_child` runs any of these as a subprocess and parses its output;
@@ -440,6 +441,26 @@ def march_forms(tsdf, T, params, intr):
                                           step, inv_vs, k_start=k_lo, max_steps=bound))
 
 
+#: (sx, sy, sz) of S1's forms: each axis one way, all three, none, a wipe
+SHIFT_FORMS = ((0, 0, 2), (0, -3, 0), (1, 0, 0), (2, -3, 1), (0, 0, 0), (0, 600, 0))
+
+
+def shift_forms(vol):
+    """S1 (`volume/stream.py::shift_volume_`) by each of SHIFT_FORMS, in
+    place: each launch starts from the volume it was given."""
+    from kinfu_tpu_torch.volume.stream import shift_volume_
+
+    start = tuple(a.clone() for a in vol)
+    for s in SHIFT_FORMS:
+        shift = torch.tensor(s, dtype=torch.int32, device=vol.tsdf.device)
+
+        def launch(grid, shift=shift):
+            for a, b in zip(vol, start):
+                a.copy_(b)
+            return tuple(shift_volume_(vol, shift))
+        yield Form(f"S1 shift_volume_ by {s}", launch)
+
+
 def launch_corner(params, intr, device) -> None:
     """The corner orbit through the fused step up to its first frame whose
     tracked pose gates two faces."""
@@ -484,11 +505,12 @@ def orbit_state(scale: str, device):
 
 
 def all_forms(state, frame, T, params, intr):
-    """Every launch form of K1-K5, M1 and M2 on the state's volume and
+    """Every launch form of K1-K5, M1, M2 and S1 on the state's volume and
     model maps and on `frame` at pose T."""
     yield from icp_forms(state, frame[0], params, intr)
     yield from face_forms(state.vol, frame, T, params, intr)
     yield from march_forms(state.vol.tsdf, T, params, intr)
+    yield from shift_forms(state.vol)
 
 
 def launch_all(scale: str, device) -> None:

@@ -16,6 +16,12 @@ three broadcast index vectors and one select against the product of three
 1-D masks. The JAX package shifts x, then y, then z, each a roll and a mask
 (L24-47); zero-filled shifts along different axes commute, so the one 3-D
 gather gives its bits in one pass over the volume.
+
+`shift_volume` is the plain version and makes new tensors. The step calls
+`shift_volume_`, which moves the voxels inside the tensors it is given: on
+the card one launch an axis of csrc/shift_volume.cu, which reads its
+component of the shift and returns at once when it is 0; on the CPU the
+plain version copied back. Each call adds to `SHIFT_COUNTS`.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from kinfu_tpu_torch.device import constant
 from kinfu_tpu_torch.numerics import recip
+from kinfu_tpu_torch.ops import kernels
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume
 
 
@@ -49,6 +56,51 @@ def shift_volume(vol: TSDFVolume, shift_xyz: torch.Tensor) -> TSDFVolume:
     iz, iy, ix = iz[:, None, None], iy[None, :, None], ix[None, None, :]
     keep = vz[:, None, None] & (vy[:, None] & vx[None, :])[None]
     return TSDFVolume(*(torch.where(keep, a[iz, iy, ix], 0) for a in vol))
+
+
+#: per device, int64 [2] on it: the `shift_volume_` calls, and the calls
+#: whose shift had a component other than 0 (voxels moved); added to on the
+#: device, so counting waits for nothing, and read once after a run
+SHIFT_COUNTS: dict = {}
+
+
+def shift_counts(device) -> torch.Tensor:
+    """The counter of `device` in SHIFT_COUNTS, made at its first use (a
+    step's first frame, before any capture)."""
+    dev = torch.device(device)
+    if dev not in SHIFT_COUNTS:
+        SHIFT_COUNTS[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return SHIFT_COUNTS[dev]
+
+
+def shift_volume_(vol: TSDFVolume, shift_xyz: torch.Tensor,
+                  counts: torch.Tensor | None = None) -> TSDFVolume:
+    """`shift_volume` in place: moves the content of vol's own tensors and
+    returns `vol`, so the caller's volume is the shifted one. Adds 1 to
+    counts[0] and, where a component of the shift is not 0, to counts[1]
+    (default: `shift_counts` of the volume's device). CPU tensors take the
+    plain version and copy it back; CUDA tensors launch
+    csrc/shift_volume.cu (x, then y, then z; a zero component returns
+    without moving a voxel)."""
+    dev = vol.tsdf.device
+    counts = shift_counts(dev) if counts is None else counts
+    if dev.type == "cpu":
+        for a, b in zip(vol, shift_volume(vol, shift_xyz)):
+            a.copy_(b)
+        counts[0] += 1
+        counts[1] += (shift_xyz != 0).any()
+        return vol
+    kernels.library()
+    Z, Y, X = vol.tsdf.shape
+    kernels.check_cuda("shift_volume", *vol, shift_xyz, counts)
+    for name, a, dtype in zip(TSDFVolume._fields, vol, (torch.int16, torch.int16, torch.int32)):
+        kernels.check(f"shift_volume {name}", a, dtype, (Z, Y, X))
+    kernels.check("shift_volume", shift_xyz, torch.int32, (3,))
+    kernels.check("shift_volume", counts, torch.int64, (2,))
+    kernels.launch(
+        "kinfu_shift_volume", *(kernels.ptr(a) for a in vol), kernels.ptr(shift_xyz),
+        kernels.ptr(counts), Z, Y, X, kernels.lengths(*vol, shift_xyz, counts), count=3)
+    return vol
 
 
 @functools.lru_cache(maxsize=None)

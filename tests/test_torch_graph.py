@@ -1,7 +1,8 @@
 """The CUDA-graph path of the session's step (kinfu_tpu_torch/pipeline/
 graphed.py) where it needs no card: which sessions capture their step,
 the segments a fused and a streaming step are cut into at their spans,
-the in-place step and reset that keep the state's addresses (CPU,
+the in-place step and reset that keep the state's addresses, the step's
+volume updated in place, the streaming shift's too (CPU,
 128^3 / 80x64, two pyramid levels), and the layout of libcuda's
 struct that the check for copies from the host reads."""
 
@@ -87,6 +88,10 @@ def _setup(streaming):
     return init_state(PARAMS, INTR, device="cpu"), make_step_fn(PARAMS, INTR)
 
 
+def _volume(state):
+    return state.kinfu.vol if hasattr(state, "origin_vox") else state.vol
+
+
 @pytest.fixture(scope="module", params=[False, True], ids=["fixed", "streaming"])
 def frames_in_place(request):
     """The bootstrap frame stepped in place with its spans recorded, and
@@ -100,7 +105,9 @@ def frames_in_place(request):
     res = {"streaming": streaming, "state": state, "ptrs": ptrs, "same_state": []}
     with profiling.cut_at_spans(profiling.Cuts()) as cuts:
         state2, out = step_in_place(step, state, d, c)
+    vol_before = [t.data_ptr() for t in _volume(plain)]
     plain, want = step(plain, d, c)
+    res["vol_kept"] = [t.data_ptr() for t in _volume(plain)] == vol_before
     res["cuts"] = cuts.names
     res["outs"] = [(out, want)]
     res["same_state"].append(state2 is state)
@@ -120,6 +127,13 @@ def frames_in_place(request):
 def test_segment_order(frames_in_place):
     r = frames_in_place
     assert r["cuts"] == [s for s in STEP if r["streaming"] or s != "kinfu.step.shift"]
+
+
+def test_step_returns_the_state_volume(frames_in_place):
+    """The step, streaming or not, updates the volume it is given in place
+    (the streaming shift too) and returns its tensors, so the graphed
+    step's copy-back has no volume to copy."""
+    assert frames_in_place["vol_kept"]
 
 
 def test_in_place_step_and_reset_keep_addresses(frames_in_place):

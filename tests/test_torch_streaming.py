@@ -1,8 +1,10 @@
 """The port's streaming volume (kinfu_tpu_torch/volume/stream.py,
 kinfu_tpu_torch/pipeline/streaming.py) against the JAX package.
 
-  - `shift_volume` bit for bit against JAX's on non-cubic [16, 24, 32]
-    int16 / int16 / int32 volumes, in-range and out-of-range shifts;
+  - `shift_volume` and the in-place `shift_volume_` bit for bit against
+    JAX's on non-cubic [16, 24, 32] int16 / int16 / int32 volumes,
+    in-range and out-of-range shifts; `shift_volume_` keeps the volume's
+    tensors (a zero shift also their bits) and counts its calls and moves;
   - `camera_centering_shift` int32-exact against JAX's on seeded positions,
     half-voxel ties and NaN included;
   - the streaming step from each JAX state, on the non-fused path (the
@@ -35,7 +37,12 @@ from kinfu_tpu_torch.data.synthetic import default_test_scene, make_orbit_trajec
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.pipeline.state import streaming_state_from_numpy, streaming_state_to_numpy
 from kinfu_tpu_torch.pipeline.streaming import init_streaming_state, make_streaming_step_fn
-from kinfu_tpu_torch.volume.stream import camera_centering_shift, shift_volume
+from kinfu_tpu_torch.volume.stream import (
+    camera_centering_shift,
+    shift_counts,
+    shift_volume,
+    shift_volume_,
+)
 from kinfu_tpu_torch.volume.tsdf import TSDFVolume, tsdf_to_float
 
 torch.set_num_threads(2)
@@ -79,26 +86,61 @@ def _track(frames, params=PARAMS, margin=MARGIN, state=None):
 # ---- the shift ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shift", [(0, 0, 0), (2, 0, 0), (0, -3, 5), (-1, -1, -1),
-                                   (40, 0, 0), (0, 0, -16)])
-def test_shift_volume_matches_jax(shift):
-    """One 3-D gather per array gives the JAX package's three roll-and-mask
-    passes bit for bit."""
+SHIFTS = [(0, 0, 0), (2, 0, 0), (0, -3, 5), (-1, -1, -1), (40, 0, 0), (0, 0, -16)]
+
+
+def _random_arrays(shape=(16, 24, 32)):
     rng = np.random.default_rng(11)
-    shape = (16, 24, 32)
-    arrays = (rng.integers(-32767, 32768, shape).astype(np.int16),
-              rng.integers(0, 65, shape).astype(np.int16),
-              rng.integers(0, 1 << 24, shape).astype(np.int32))
+    return (rng.integers(-32767, 32768, shape).astype(np.int16),
+            rng.integers(0, 65, shape).astype(np.int16),
+            rng.integers(0, 1 << 24, shape).astype(np.int32))
+
+
+@pytest.mark.parametrize("fn, shift", [(f, s) for f in (shift_volume, shift_volume_)
+                                       for s in SHIFTS],
+                         ids=[f"{p}shift{k}" for p in ("", "in_place-")
+                              for k in range(len(SHIFTS))])
+def test_shift_volume_matches_jax(fn, shift):
+    """One 3-D gather per array gives the JAX package's three roll-and-mask
+    passes bit for bit; so does the in-place form, in the tensors it was
+    given."""
+    arrays = _random_arrays()
     s = np.asarray(shift, np.int32)
     want = jstream.shift_volume(JVolume(*arrays), s)
-    vol = TSDFVolume(*(torch.as_tensor(a) for a in arrays))
-    got = shift_volume(vol, torch.as_tensor(s))
+    vol = TSDFVolume(*(torch.as_tensor(a).clone() for a in arrays))
+    ptrs = [t.data_ptr() for t in vol]
+    got = fn(vol, torch.as_tensor(s))
     for name, g, w, a in zip(("tsdf", "weight", "colour"), got, want, arrays):
         assert g.dtype == torch.as_tensor(a).dtype, name
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    # the volume it was given is left as it was
-    for a, t in zip(arrays, vol):
-        np.testing.assert_array_equal(t.numpy(), a)
+    if fn is shift_volume:
+        # the volume it was given is left as it was
+        for a, t in zip(arrays, vol):
+            np.testing.assert_array_equal(t.numpy(), a)
+    else:
+        # the volume it was given is the one shifted
+        assert got is vol and [t.data_ptr() for t in vol] == ptrs
+
+
+def test_shift_volume_in_place_counts():
+    """A zero shift keeps each tensor's address and bits; the counter adds
+    every call, and the calls that move voxels."""
+    arrays = _random_arrays()
+    vol = TSDFVolume(*(torch.as_tensor(a).clone() for a in arrays))
+    ptrs = [t.data_ptr() for t in vol]
+    counts = torch.zeros(2, dtype=torch.int64)
+    for s in SHIFTS[:1] * 2 + SHIFTS[1:3]:
+        shift_volume_(vol, torch.tensor(s, dtype=torch.int32), counts)
+        if s == (0, 0, 0):
+            assert [t.data_ptr() for t in vol] == ptrs
+            for a, t in zip(arrays, vol):
+                np.testing.assert_array_equal(t.numpy(), a)
+    assert counts.tolist() == [4, 2]
+    # the default counter is the device's own
+    before = shift_counts("cpu").clone()
+    shift_volume_(vol, torch.tensor((0, 0, 1), dtype=torch.int32))
+    shift_volume_(vol, torch.zeros(3, dtype=torch.int32))
+    assert (shift_counts("cpu") - before).tolist() == [2, 1]
 
 
 @pytest.mark.parametrize("dims, vrange, margin", [
