@@ -2313,7 +2313,7 @@ def run_inside(params, intr, device, smi: str) -> dict:
     from kinfu_tpu_torch.ops.face_integrate import faces_needed
     from kinfu_tpu_torch.ops.face_raycast import faces_needed_cam2vol, raycast_warped
     from kinfu_tpu_torch.ops.facewarp import face_frames
-    from kinfu_tpu_torch.ops.fused_step import fused_update
+    from kinfu_tpu_torch.pipeline.kinfu import update_volume
     from kinfu_tpu_torch.tools.raycast_parity_probe import face_counts, parity_stats
     from kinfu_tpu_torch.volume.raycast import raycast
     from kinfu_tpu_torch.volume.tsdf import create_volume
@@ -2328,8 +2328,9 @@ def run_inside(params, intr, device, smi: str) -> dict:
         cam = pose_from_matrix(torch.as_tensor(T, device=device))
         vol2cam, cam2vol = compose(inverse(cam), volp), compose(inverse(volp), cam)
         vol = create_volume(params.volume_dims, device=device)
-        vol, _, nmap = fused_update(vol, depth_m, torch.as_tensor(color, device=device),
-                                    vol2cam, cam2vol, intr, params, good)
+        vol, _, nmap = update_volume(vol, depth_m, vol2cam, cam2vol, good,
+                                     color_rgb=torch.as_tensor(color, device=device),
+                                     intr=intr, params=params, fused=True)
         kernels.reset_launch_counts()
         march = raycast(vol, cam2vol, intr, params.replace(raycast_mode="hier"))
         m_launches = kernels.LAUNCHES.get("march_hier", 0)

@@ -7,9 +7,8 @@ longest files hold one or two tests each (a JAX step compiled with
 interpret-mode Pallas kernels), so they were queued behind every other
 file and the run's wall was about a sixth of everything else plus the
 longest file. Here the reordering is turned off, and the collected items
-are sorted, stably, so that the files start longest first: the four named
-in FIRST, then the rest by their measured time. The tests inside a file
-keep their order.
+are sorted, stably, so that the files start longest first, by their
+measured time (SECONDS). The tests inside a file keep their order.
 
 One exception to that order: at the start xdist gives each worker one
 file and then, to every worker whose file holds at most two tests, a
@@ -24,56 +23,58 @@ JAX platform before jax is first imported.
 
 import os
 
-#: the files that start first, in this order
-FIRST = ("test_ysharded.py", "test_fused_step.py", "test_fused_streaming.py",
-         "test_torch_step.py")
-
 #: seconds per file, the sum over its tests of a tier-1 run's --junitxml
-#: (6 workers on an 8-core CPU host); a file not listed counts as 0
+#: (6 workers on an 8-core CPU host); refresh it from a whole run when a
+#: file is added or its time moves; a file not listed counts as 0
 SECONDS = {
-    "test_distributed.py": 522,
-    "test_torch_io_cli.py": 359,
-    "test_fused_sharded.py": 350,
-    "test_dispatch.py": 305,
-    "test_torch_mapping.py": 295,
-    "test_pallas_integrate.py": 213,
-    "test_torch_session.py": 172,
-    "test_pallas_raycast.py": 119,
-    "test_mapping.py": 111,
-    "test_torch_volume.py": 102,
-    "test_torch_sharded_integrate.py": 101,
-    "test_torch_streaming.py": 95,
-    "test_torch_integrate.py": 85,
-    "test_torch_sharded_fused.py": 73,
-    "test_torch_raycast.py": 60,
-    "test_torch_sharded_kernels.py": 57,
-    "test_pipeline.py": 51,
-    "test_torch_sharded_step.py": 39,
-    "test_torch_bench.py": 59,
-    "test_session.py": 38,
-    "test_torch_tools.py": 38,
-    "test_pallas_icp.py": 35,
-    "test_torch_march.py": 63,
+    "test_ysharded.py": 899,
+    "test_distributed.py": 652,
+    "test_fused_step.py": 507,
+    "test_fused_streaming.py": 502,
+    "test_fused_sharded.py": 432,
+    "test_dispatch.py": 392,
+    "test_torch_step.py": 286,
+    "test_torch_io_cli.py": 262,
+    "test_pallas_integrate.py": 199,
+    "test_pallas_raycast.py": 198,
+    "test_torch_streaming.py": 140,
+    "test_torch_mapping.py": 129,
     "test_torch_spans.py": 122,
-    "test_torch_icp_warped.py": 30,
+    "test_torch_volume.py": 120,
+    "test_torch_sharded_integrate.py": 103,
+    "test_mapping.py": 102,
+    "test_torch_integrate.py": 94,
+    "test_torch_march.py": 82,
+    "test_torch_session.py": 74,
+    "test_torch_sharded_fused.py": 60,
+    "test_torch_tools.py": 59,
+    "test_session.py": 57,
+    "test_pallas_icp.py": 54,
+    "test_pipeline.py": 51,
+    "test_torch_raycast.py": 48,
+    "test_torch_sharded_step.py": 45,
+    "test_torch_bench.py": 41,
+    "test_torch_icp_warped.py": 38,
+    "test_sanitizers.py": 35,
+    "test_torch_sharded_kernels.py": 31,
+    "test_torch_icp.py": 29,
+    "test_volume.py": 27,
+    "test_tilegather.py": 25,
+    "test_frontend.py": 23,
+    "test_torch_foundations.py": 23,
     "test_torch_graph.py": 20,
-    "test_torch_icp.py": 25,
-    "test_sanitizers.py": 24,
-    "test_frontend.py": 21,
-    "test_tilegather.py": 19,
-    "test_volume.py": 19,
-    "test_torch_sanitizers.py": 35,
-    "test_torch_foundations.py": 16,
-    "test_datasets.py": 12,
+    "test_torch_sanitizers.py": 18,
+    "test_datasets.py": 16,
+    "test_golden_trajectory.py": 14,
+    "test_torch_frontend.py": 12,
     "test_icp.py": 12,
-    "test_viz3d.py": 11,
-    "test_golden_trajectory.py": 9,
-    "test_torch_facewarp.py": 7,
-    "test_torch_integrate_paths.py": 16,
-    "test_se3.py": 3,
+    "test_viz3d.py": 12,
+    "test_torch_integrate_paths.py": 10,
+    "test_torch_facewarp.py": 9,
+    "test_torch_sharded_sizes.py": 8,
+    "test_se3.py": 2,
     "test_intrinsics.py": 2,
     "test_io.py": 1,
-    "test_torch_frontend.py": 1,
 }
 
 
@@ -84,9 +85,7 @@ def pytest_configure(config):
 
 
 def _file_rank(name: str):
-    if name in FIRST:
-        return (0, FIRST.index(name))
-    return (1, -SECONDS.get(name, 0))
+    return -SECONDS.get(name, 0)
 
 
 def pytest_collection_modifyitems(session, config, items):

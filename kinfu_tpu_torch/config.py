@@ -7,7 +7,7 @@ runs on CUDA instead of a TPU:
 
   - fused_mode / integrate_mode / raycast_mode "auto": the fused step with
     the warped integrate and raycast kernels on a CUDA device whenever
-    `ops.facewarp.warp_dims_ok` holds (ops/fused_step.fused_supported).
+    `ops.facewarp.warp_dims_ok` holds (pipeline/kinfu.py::fused_supported).
     Off CUDA, "auto" selects the non-fused step, as the JAX package does
     off its TPU: the gather integrate and the "hier" raycast
     (volume/integrate.py, volume/raycast.py); `fused_mode="on"` runs the
@@ -64,20 +64,24 @@ class KinFuParams:
     #: world-frame position of the volume's (0,0,0) corner
     volume_origin: Tuple[float, float, float] | None = None
     tsdf_max_weight: int = 64
-    #: fusion path: "warped" = face-warp kernels (K2 + K3); "gather" is not
-    #: ported yet; "auto" = warped (see the module docstring)
+    #: fusion path: "warped" = face-warp kernels (K2 + K3); "gather" = the
+    #: per-voxel projection in plain PyTorch; "auto" = warped on CUDA where
+    #: eligible, gather elsewhere (volume/integrate.py::resolve_integrate_mode)
     integrate_mode: str = "auto"
 
     # ---- raycast ----
-    #: ray-march step in voxels (used by the unported step/hier marchers)
+    #: ray-march step in voxels of the "step" and "hier" marches
     raycast_step_voxels: float = 1.0
-    #: "warped" = cube-face plane sweep (K4 + K5); "hier"/"step" are not
-    #: ported yet; "auto" = warped (see the module docstring)
+    #: "warped" = cube-face plane sweep (K4 + K5); "step" = the march (M1);
+    #: "hier" = the march that skips empty 8^3 blocks (M2); "auto" = warped
+    #: on CUDA where eligible, else "hier", or "step" where a dim is not a
+    #: multiple of 8 (volume/raycast.py::resolve_raycast_mode)
     raycast_mode: str = "auto"
     #: (size_px, focal_px) of the virtual face grid of the warped raycast
     raycast_face: Tuple[int, float] = (640, 261.0)
-    #: fused integrate+raycast+reset step (ops/fused_step.py): "auto" = on
-    #: CUDA when the warped kernels are eligible, "on" = on any device
+    #: the warped integrate and the warped raycast, the raycast gated by
+    #: the fusion's face flags (pipeline/kinfu.py::update_volume): "auto" =
+    #: on CUDA when the warped kernels are eligible, "on" = on any device
     #: (plain PyTorch versions on the CPU), "off" = never
     fused_mode: str = "auto"
 

@@ -217,8 +217,8 @@ def corner_test_scene(yaw_deg: float = 50.0) -> "SyntheticScene":
     Pairs with `yaw_trajectory`: a camera yawed `yaw_deg` about y sees a
     sphere + two tilted planes along that direction, all inside the
     default 3 m volume — the frustum straddles the +z/+x cube edge, so the
-    fused step's multi-face CHAIN branch runs every frame
-    (ops/fused_step.py branch 6; tools/hw_bisect.py --corner)."""
+    JAX fused step's multi-face CHAIN branch runs every frame
+    (kinfu_tpu/ops/fused_step.py branch 6; tools/hw_bisect.py --corner)."""
     a = np.deg2rad(yaw_deg)
     d = np.array([np.sin(a), 0.0, np.cos(a)])
     back_n = -d + np.array([0.1, 0.05, 0.0])

@@ -425,21 +425,24 @@ def integrate_warped(
     intr: Intrinsics,
     params: KinFuParams,
     spec: FaceSpec | None = None,
-    faces: str | tuple = "auto",
+    faces: str | tuple | torch.Tensor = "auto",
     gate: torch.Tensor | None = None,
     shard_dim: int | None = None,
 ) -> TSDFVolume:
     """Fuse one frame into `vol` in place via face warps + sweeps.
 
     faces="auto" runs every face the frustum touches, gated by the device
-    flags of `faces_needed` (no host read); an explicit tuple of face names
-    runs exactly those sweeps. `gate`, a device bool, joins every face's
-    flag: where it is False no face writes anything. `shard_dim` selects
-    the frame set of a slab (`integrate_faces`)."""
+    flags of `faces_needed` (no host read); bool [6] device flags are used
+    as they are; an explicit tuple of face names runs exactly those sweeps.
+    `gate`, a device bool, joins every face's flag: where it is False no
+    face writes anything. `shard_dim` selects the frame set of a slab
+    (`integrate_faces`)."""
     spec = spec or default_face_spec()
     col_packed = pack_rgb(color_rgb)
     names = None
-    if faces == "auto":
+    if isinstance(faces, torch.Tensor):
+        gates = faces
+    elif faces == "auto":
         gates = faces_needed(vol2cam, intr)
     else:
         names = tuple(faces)

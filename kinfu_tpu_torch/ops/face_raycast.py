@@ -33,15 +33,17 @@ K5 (`resample_composite`, csrc/resample_face.cu) replaces
 a frame, one thread per camera pixel, finds the face that owns the pixel's
 ray (the exact ownership test of `_face_pass`, L699-705), takes that
 face's nearest face pixel and writes the composite vertex, normal and
-valid mask in the volume frame, as the fused step's composite over the
-faces (kinfu_tpu/ops/fused_step.py:132-144) keeps what the owning face
+valid mask in the volume frame, as the JAX fused step's composite over
+the faces (kinfu_tpu/ops/fused_step.py:132-144) keeps what the owning face
 gives.
 
-`raycast_warped` is the raycast-only entry of the `raycast` dispatcher
-(pallas_raycast.py:721-826): the sweep and shading of each face and K5's
-composite, gated by the raycast's own face flags, which take the frustum
-directions through cam2vol (`faces_needed_cam2vol`); the fused update
-gates both passes with the fusion's vol2cam flags.
+`face_composite` is the sweep and shading of each face under its device
+flag and K5's composite; `to_camera` takes its maps to the camera frame.
+`raycast_warped`, the warped entry of the `raycast` dispatcher
+(pallas_raycast.py:721-826), runs both under the raycast's own face flags,
+which take the frustum directions through cam2vol
+(`faces_needed_cam2vol`); the fused update (pipeline/kinfu.py::
+update_volume) runs `face_composite` under the fusion's vol2cam flags.
 
 `sweep_rays_plain` and `resample_composite_plain` are their plain PyTorch
 versions; `resample_face_plain` is the one-face resample of the JAX
@@ -650,6 +652,31 @@ def faces_needed_cam2vol(cam2vol: Pose, intr: Intrinsics,
     return (comp >= margin * dinf).flatten(1).any(dim=1)
 
 
+def face_composite(tsdf: torch.Tensor, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
+                   gates: torch.Tensor, spec: RaySpec | None = None):
+    """Each face's sweep (K4) and shading under its device flag in `gates`
+    (bool [6], face_frames() order), then one launch of K5 that composites
+    the six faces by exact ownership: (vertex, normal, valid) of the camera
+    grid in the volume frame. The JAX package's single-face switch, cond
+    chain and multiply-masks are TPU staging and have no counterpart."""
+    if spec is None:
+        size, focal = params.raycast_face
+        spec = RaySpec(size=int(size), focal=float(focal))
+    prm = composite_params(cam2vol, params)
+    fields = [sweep_and_shade(tsdf, frame, prm[f, 9:12], params, spec, gates[f])
+              for f, frame in enumerate(face_frames())]
+    return resample_composite([t for t, _ in fields], [n for _, n in fields], prm, gates,
+                              intr, spec)
+
+
+def to_camera(vertex: torch.Tensor, normal: torch.Tensor, valid: torch.Tensor, cam2vol: Pose):
+    """Camera-frame (vmap, nmap) of volume-frame maps, zero where not
+    `valid`: R^T (p - org) and R^T n, as rows times R."""
+    R, org = cam2vol
+    m = valid[..., None]
+    return torch.where(m, (vertex - org) @ R, 0.0), torch.where(m, normal @ R, 0.0)
+
+
 def raycast_warped(vol, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
                    spec: RaySpec | None = None, faces: str | tuple = "auto",
                    gate: torch.Tensor | None = None):
@@ -658,26 +685,11 @@ def raycast_warped(vol, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
 
     faces="auto" sweeps every face that owns a frustum direction, by the
     cam2vol flags (`faces_needed_cam2vol`); an explicit tuple of face names
-    pins the sweep set. `gate`, a device bool, joins every face's flag.
-    Each face's sweep (K4) and shading run with its device flag, and one
-    launch of K5 composites the six faces by exact ownership; the JAX
-    package's single-face switch, cond chain and multiply-masks are TPU
-    staging and have no counterpart."""
-    if spec is None:
-        size, focal = params.raycast_face
-        spec = RaySpec(size=int(size), focal=float(focal))
+    pins the sweep set. `gate`, a device bool, joins every face's flag."""
     if faces == "auto":
         gates = faces_needed_cam2vol(cam2vol, intr)
     else:
         gates = pinned_gates(tuple(faces), vol.tsdf.device)
     if gate is not None:
         gates = gates & gate
-    prm = composite_params(cam2vol, params)
-    fields = [sweep_and_shade(vol.tsdf, frame, prm[f, 9:12], params, spec, gates[f])
-              for f, frame in enumerate(face_frames())]
-    vertex, normal, valid = resample_composite(
-        [t for t, _ in fields], [n for _, n in fields], prm, gates, intr, spec)
-    R, org = cam2vol
-    m = valid[..., None]
-    # R^T (p - org) and R^T n, as rows times R
-    return torch.where(m, (vertex - org) @ R, 0.0), torch.where(m, normal @ R, 0.0)
+    return to_camera(*face_composite(vol.tsdf, cam2vol, intr, params, gates, spec), cam2vol)

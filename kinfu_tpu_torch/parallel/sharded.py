@@ -31,17 +31,21 @@ holding the single-device step's stage spans (`kinfu.step.frontend`,
 is `kinfu.shard.halo` and each collective `kinfu.shard.collective`
 (parallel/mesh.py).
 
-The fused update (`fused_update_local`) runs integrate, halo exchange and
-raycast under the same device face flags as the single-device fused step,
-which depend on the replicated rotation only, so every rank launches the
-same kernels and meets the same collectives. Nothing reads the device on
-the host: a failed frame gates the kernels and resets each rank's slab by
-a multiply, as on one device. Gloo stages CUDA tensors through the host,
-so the collectives themselves synchronise there.
+The rank's volume update is the single-device one (`pipeline/kinfu.py::
+update_volume`) on its slab, with the slab's offset and the rank's
+raycasts. Under the fused rule (`fused_supported` of the global and the
+local shape) it runs integrate, halo exchange and raycast under the
+fusion's device face flags, which depend on the replicated rotation only,
+so every rank launches the same kernels and meets the same collectives.
+Nothing reads the device on the host: a failed frame gates the kernels
+and resets each rank's slab by a multiply, as on one device. Gloo stages
+CUDA tensors through the host, so the collectives themselves synchronise
+there.
 """
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 from typing import Tuple
 
@@ -53,7 +57,6 @@ from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose, pose_matrix
 from kinfu_tpu_torch.numerics import recip
-from kinfu_tpu_torch.ops.face_integrate import faces_needed, integrate_faces
 from kinfu_tpu_torch.ops.face_raycast import (
     RaySpec,
     Shard,
@@ -63,20 +66,15 @@ from kinfu_tpu_torch.ops.face_raycast import (
     ray_params,
     resample_composite,
     sweep_rays,
+    to_camera,
 )
-from kinfu_tpu_torch.ops.facewarp import (
-    default_face_spec,
-    face_frames,
-    primed_voxel_size,
-    warp_dims_ok,
-)
+from kinfu_tpu_torch.ops.facewarp import face_frames, primed_voxel_size, warp_dims_ok
 from kinfu_tpu_torch.parallel.mesh import Mesh, halo_exchange, pmin, psum
-from kinfu_tpu_torch.pipeline.kinfu import _finite_pose, step_with
+from kinfu_tpu_torch.pipeline.kinfu import fused_supported, step_with, update_volume
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput, state_from_numpy
 from kinfu_tpu_torch.ops.icp_warped import icp_normal_eqs_warped
 from kinfu_tpu_torch.tracking.icp import ICPResult, _normal_equations, icp_loop, resolve_icp_mode
 from kinfu_tpu_torch.utils.profiling import span
-from kinfu_tpu_torch.volume.integrate import fold_shard_origin, integrate
 from kinfu_tpu_torch.volume.raycast import (
     _INF,
     _rotate_t,
@@ -85,7 +83,6 @@ from kinfu_tpu_torch.volume.raycast import (
     march_steps_bound,
     shade,
 )
-from kinfu_tpu_torch.volume.tsdf import TSDFVolume, pack_rgb
 
 #: halo rows of the march raycast: its samples reach +-2.5 rows past the
 #: owned slab, the trilinear gradient +-1.5 (kinfu_tpu/parallel/sharded.py:54)
@@ -119,7 +116,7 @@ def ray_shard(frame, padded_shape, Lg: int, Ll: int, off0: int, shard_dim: int) 
 
 
 def _composite_local(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
-                     params: KinFuParams, mesh: Mesh, gates: torch.Tensor):
+                     params: KinFuParams, gates: torch.Tensor, mesh: Mesh):
     """The warped raycast over the mesh, in the volume frame: (vertex,
     normal, valid) of the camera grid, identical on every rank. Each face's
     sweep (K4's shard form) runs on the halo-padded slab, one `pmin`
@@ -146,12 +143,6 @@ def _composite_local(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
                               intr, rspec)
 
 
-def _to_camera(vertex, normal, valid, R, org):
-    """Camera-frame maps of volume-frame ones, zero where not valid."""
-    m = valid[..., None]
-    return torch.where(m, (vertex - org) @ R, 0.0), torch.where(m, normal @ R, 0.0)
-
-
 def sharded_raycast_warped(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
                            params: KinFuParams, mesh: Mesh,
                            gate: torch.Tensor | None = None):
@@ -162,8 +153,7 @@ def sharded_raycast_warped(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrin
     gates = faces_needed_cam2vol(cam2vol, intr)
     if gate is not None:
         gates = gates & gate
-    vertex, normal, valid = _composite_local(tsdf_local, cam2vol, intr, params, mesh, gates)
-    return _to_camera(vertex, normal, valid, *cam2vol)
+    return to_camera(*_composite_local(tsdf_local, cam2vol, intr, params, gates, mesh), cam2vol)
 
 
 def _local_t_interval(org_z, dir_z, z_lo, z_hi, t_start, t_end, step: float):
@@ -235,59 +225,6 @@ def sharded_raycast(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
     return out[0], out[1]
 
 
-def fused_supported_local(local_shape, mesh: Mesh, params: KinFuParams, device) -> bool:
-    """True when the sharded fused update serves this configuration
-    (sharded.py:352-380): the single-device rule (`ops/fused_step.py::
-    fused_supported`) on the global and the local shape, in the frame set
-    of the shard dim."""
-    if params.fused_mode == "off":
-        return False
-    sd = mesh.shard_dim
-    modes_ok = params.integrate_mode in ("auto", "warped") and (
-        params.raycast_mode in ("auto", "warped"))
-    ok = (modes_ok and warp_dims_ok(global_shape(local_shape, mesh), sd)
-          and warp_dims_ok(tuple(local_shape), sd))
-    if params.fused_mode == "on":
-        return ok
-    return ok and torch.device(device).type == "cuda"
-
-
-def fused_update_local(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Tensor,
-                       vol2cam: Pose, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
-                       good: torch.Tensor, mesh: Mesh):
-    """The rank's fused update (sharded.py:383-543): fuse the frame into
-    its slab in place (K2 + K3's shard form, the slab's origin folded into
-    the pose), exchange the halos, raycast the fused volume over the mesh
-    (K4's shard form, one `pmin`, shading and K5), and reset the slab on a
-    failed frame. The face flags are the fusion's (`faces_needed`,
-    rotation only, so the same on every rank) and `good`. Returns (vol,
-    vmap, nmap), the maps replicated and zero where `good` is False.
-
-    Deliberate divergence: a non-finite pose is replaced as a whole matrix,
-    as the single-device `ops/fused_step.py::fused_update` does; the JAX
-    sharded update repairs single entries (sharded.py:427-428), which does
-    not leave a rotation."""
-    sd = mesh.shard_dim
-    R, org = cam2vol
-    pose_ok = torch.isfinite(R).all() & torch.isfinite(org).all()
-    R = torch.where(pose_ok, R, torch.eye(3, dtype=R.dtype, device=R.device))
-    org = torch.where(pose_ok, org, torch.zeros_like(org))
-
-    with span("kinfu.step.integrate"):
-        gates = faces_needed(vol2cam, intr) & good
-        z_offset = vol.tsdf.shape[sd] * mesh.rank
-        integrate_faces(vol, depth_m, pack_rgb(color_rgb),
-                        fold_shard_origin(vol2cam, z_offset, sd, params.voxel_size), intr,
-                        params, default_face_spec(), gates, shard_dim=sd)
-    with span("kinfu.step.raycast"):
-        vertex, normal, valid = _composite_local(vol.tsdf, cam2vol, intr, params, mesh, gates)
-        vmap, nmap = _to_camera(vertex, normal, valid, R, org)
-    with span("kinfu.step.reset"):
-        for a in vol:
-            a.mul_(good.to(a.dtype))
-    return vol, vmap, nmap
-
-
 def resolve_raycast_mode(params: KinFuParams, local_shape, mesh: Mesh, device) -> str:
     """"warped" or "step" for the non-fused sharded step (sharded.py:
     652-683): "auto" is "warped" on a CUDA device where the global shape
@@ -299,28 +236,6 @@ def resolve_raycast_mode(params: KinFuParams, local_shape, mesh: Mesh, device) -
     if mode == "auto":
         mode = "warped" if torch.device(device).type == "cuda" and warp_ok else "step"
     return "warped" if mode == "warped" and warp_ok else "step"
-
-
-def update_local(vol: TSDFVolume, depth_m: torch.Tensor, color_rgb: torch.Tensor,
-                 vol2cam: Pose, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
-                 good: torch.Tensor, mesh: Mesh):
-    """The rank's non-fused update (sharded.py:645-696): the `integrate`
-    dispatcher on the slab with its `z_offset`, then the sharded raycast of
-    `resolve_raycast_mode`, both gated by `good`, then the reset on a
-    failed frame."""
-    sd = mesh.shard_dim
-    with span("kinfu.step.integrate"):
-        integrate(vol, depth_m, color_rgb, vol2cam, intr, params,
-                  z_offset=vol.tsdf.shape[sd] * mesh.rank, shard_dim=sd, gate=good)
-    raycast = (sharded_raycast_warped
-               if resolve_raycast_mode(params, vol.tsdf.shape, mesh, vol.tsdf.device) == "warped"
-               else sharded_raycast)
-    with span("kinfu.step.raycast"):
-        rv, rn = raycast(vol.tsdf, _finite_pose(cam2vol), intr, params, mesh, gate=good)
-    with span("kinfu.step.reset"):
-        for a in vol:
-            a.mul_(good.to(a.dtype))
-    return vol, rv, rn
 
 
 def row_shard(img: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -359,23 +274,31 @@ def kinfu_step_local(state: KinFuState, depth_mm: torch.Tensor, color_rgb: torch
                      params: KinFuParams, intr: Intrinsics, mesh: Mesh
                      ) -> Tuple[KinFuState, StepOutput]:
     """One rank's sharded step (sharded.py:562-718): `pipeline/kinfu.py::
-    kinfu_step` with the ICP over the rank's row shards and the update of
-    the rank's slab; the fused update where `fused_supported_local` holds
-    (on a CUDA device by default, as on one device), else the non-fused
-    one. `state` holds the rank's slab (`shard_state`); the frame is the
-    whole one, on the state's device. A failed frame resets the state."""
+    kinfu_step` with the ICP over the rank's row shards and `update_volume`
+    on the rank's slab. Under the fused rule of the global and the local
+    shape (on a CUDA device by default, as on one device) its raycast is
+    the warped composite over the mesh (`_composite_local`), else the
+    sharded raycast of `resolve_raycast_mode`; either gathers the
+    camera-frame maps on every rank. `state` holds the rank's slab
+    (`shard_state`); the frame is the whole one, on the state's device. A
+    failed frame resets the state."""
+    sd = mesh.shard_dim
+    shape, dev = state.vol.tsdf.shape, state.vol.tsdf.device
+    march = (sharded_raycast_warped
+             if resolve_raycast_mode(params, shape, mesh, dev) == "warped" else sharded_raycast)
 
     def track(vmaps, nmaps):
         return rigid_icp_local([row_shard(v, mesh) for v in vmaps],
                                [row_shard(n, mesh) for n in nmaps],
                                state.model_vmaps, state.model_nmaps, intr, params, mesh)
 
-    def update(vol, depth_m, vol2cam, cam2vol, good):
-        fn = (fused_update_local
-              if fused_supported_local(vol.tsdf.shape, mesh, params, vol.tsdf.device)
-              else update_local)
-        return fn(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good, mesh)
-
+    update = functools.partial(
+        update_volume, color_rgb=color_rgb, intr=intr, params=params,
+        fused=(fused_supported(global_shape(shape, mesh), params, dev, sd)
+               and fused_supported(shape, params, dev, sd)),
+        composite=functools.partial(_composite_local, mesh=mesh),
+        raycast=lambda vol, c2v, i, p, gate: march(vol.tsdf, c2v, i, p, mesh, gate=gate),
+        z_offset=shape[sd] * mesh.rank, shard_dim=sd)
     return step_with(state, depth_mm, params, intr, track, update)
 
 

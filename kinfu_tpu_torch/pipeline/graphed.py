@@ -2,8 +2,9 @@
 
 On the card the fused step makes ~2,900 launches a frame, and the host's
 enqueue of them, not the device, sets a frame's pace. A session whose step
-can be captured (`graphed_ok`: a CUDA device, a volume that takes the fused
-update, neither relocalization nor the pose graph) runs it through
+can be captured (`graphed_ok`: a CUDA device, the fused rule of
+`pipeline/kinfu.py::fused_supported`, neither relocalization nor the pose
+graph) runs it through
 `GraphedStep`:
 
   - the state the step reads is the state it writes: after each frame the
@@ -44,7 +45,7 @@ import torch
 
 from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.ops import kernels
-from kinfu_tpu_torch.ops.fused_step import fused_supported
+from kinfu_tpu_torch.pipeline.kinfu import fused_supported
 from kinfu_tpu_torch.utils.profiling import Cuts, cut_at_spans, span
 
 #: frames a session runs eagerly before it captures its step
@@ -54,7 +55,7 @@ WARM_FRAMES = 2
 def graphed_ok(device, vol_shape, params: KinFuParams, relocalize: bool,
                pose_graph: bool) -> bool:
     """True when a session's step is captured: a CUDA device, a volume of
-    `vol_shape` (Z, Y, X) that takes the fused update, and neither
+    `vol_shape` (Z, Y, X) under the fused rule (`fused_supported`), and neither
     relocalization nor the pose graph (whose frames run other steps)."""
     return (torch.device(device).type == "cuda"
             and fused_supported(tuple(vol_shape), params, device)

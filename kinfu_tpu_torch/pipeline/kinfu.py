@@ -9,14 +9,15 @@ discarded), and the per-frame choices (bootstrap, tracked, failed) are
 `torch.where` selects on device tensors, so a step never waits for the
 device. The step updates the volume of the state it is given in place.
 
-Two volume updates serve the step: the fused update (`ops/fused_step.py`,
-the JAX package's single `lax.switch`) and the non-fused one, the
-`integrate` and `raycast` dispatchers (`volume/`) in the place of the JAX
-step's `lax.cond(good, fuse, fail)`. Its device flag `good` gates the
-dispatchers instead: a failed frame writes nothing into the volume and
-raycasts nothing, and the reset, where asked for, multiplies the volume
-by the flag as the fused update does. `relocalize_step` keeps the state it
-is given untouched on failure the same way.
+One volume update serves the step, `update_volume`: the integrate and
+raycast dispatchers (`volume/`) in the place of the JAX step's
+`lax.cond(good, fuse, fail)` and of its fused step's single `lax.switch`.
+Under the fused rule (`fused_supported`) both run the warped kernels under
+the fusion's face flags; otherwise each runs its configured mode. The
+device flag `good` gates them: a failed frame writes nothing into the
+volume and raycasts nothing, and the reset, where asked for, multiplies
+the volume by the flag. `relocalize_step` keeps the state it is given
+untouched on failure the same way.
 """
 
 from __future__ import annotations
@@ -38,13 +39,15 @@ from kinfu_tpu_torch.geometry.se3 import (
     pose_from_matrix,
     pose_matrix,
 )
-from kinfu_tpu_torch.ops.fused_step import fused_supported, fused_update
+from kinfu_tpu_torch.ops.face_integrate import faces_needed
+from kinfu_tpu_torch.ops.face_raycast import face_composite, to_camera
+from kinfu_tpu_torch.ops.facewarp import warp_dims_ok
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
 from kinfu_tpu_torch.tracking.icp import rigid_icp
 from kinfu_tpu_torch.utils.profiling import span
 from kinfu_tpu_torch.volume.integrate import integrate
 from kinfu_tpu_torch.volume.raycast import raycast
-from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume
+from kinfu_tpu_torch.volume.tsdf import TSDFVolume, create_volume, reset_failed_
 
 
 def init_state(params: KinFuParams, intr: Intrinsics, device="cuda") -> KinFuState:
@@ -102,28 +105,70 @@ def _measurement(depth_mm: torch.Tensor, params: KinFuParams, intr: Intrinsics):
 
 def _finite_pose(p: Pose) -> Pose:
     """`p`, or the identity when any entry is non-finite (a singular ICP
-    solve): the whole matrix is replaced, never single entries."""
+    solve): the whole matrix is replaced, never single entries. The JAX
+    sharded update repairs single entries (kinfu_tpu/parallel/sharded.py:
+    427-428), which does not leave a rotation; every update here repairs
+    as the JAX single-device steps do."""
     ok = torch.isfinite(p.R).all() & torch.isfinite(p.t).all()
     return _where_pose(ok, p, identity_pose(p.R.device))
 
 
-def _update(vol: TSDFVolume, depth_m, color_rgb, vol2cam: Pose, cam2vol: Pose,
-            intr: Intrinsics, params: KinFuParams, good: torch.Tensor,
-            reset_on_fail: bool = True):
-    """The non-fused volume update (kinfu_tpu/pipeline/kinfu.py:167-197):
-    integrate, then raycast the fused volume, both gated by `good`.
-    Returns (vol, vmap, nmap) with the fused update's contract: the maps
-    are zero where `good` is False, and the volume is then reset when
-    reset_on_fail, else kept for a relocalizer."""
+def fused_supported(shape, params: KinFuParams, device, shard_dim: int | None = None) -> bool:
+    """The fused rule: True when `update_volume` runs the warped integrate
+    and raycast under the fusion's face flags. It asks for `fused_mode`
+    "on" (the kernels' plain versions off CUDA) or "auto" on a CUDA device,
+    integrate and raycast modes "auto" or "warped", and `warp_dims_ok` of
+    the volume's (Z, Y, X) `shape` in the `shard_dim` frame set. A rank of
+    a sharded volume asks it of its global and its local shape."""
+    modes_ok = params.integrate_mode in ("auto", "warped") and (
+        params.raycast_mode in ("auto", "warped"))
+    device_ok = params.fused_mode == "on" or (
+        params.fused_mode == "auto" and torch.device(device).type == "cuda")
+    return modes_ok and device_ok and warp_dims_ok(tuple(shape), shard_dim)
+
+
+def update_volume(vol: TSDFVolume, depth_m: torch.Tensor, vol2cam: Pose, cam2vol: Pose,
+                  good: torch.Tensor, *, color_rgb: torch.Tensor, intr: Intrinsics,
+                  params: KinFuParams, reset_on_fail: bool = True, fused: bool | None = None,
+                  composite=face_composite, raycast=raycast, z_offset: int = 0,
+                  shard_dim: int = 0):
+    """The volume update (kinfu_tpu/pipeline/kinfu.py:167-197 and
+    kinfu_tpu/ops/fused_step.py): fuse the frame into `vol` in place, then
+    raycast the fused volume. Returns (vol, vmap, nmap): camera-frame maps,
+    zero where `good` (a device bool) is False; the volume is then reset
+    when reset_on_fail, else kept for a relocalizer.
+
+    Under the fused rule (`fused`, by default `fused_supported` of the
+    volume), the fusion's face flags (`faces_needed` and `good`), computed
+    once, gate the warped integrate and `composite(tsdf, cam2vol, intr,
+    params, flags)`, which sweeps from `cam2vol` as given; its maps turn
+    to the camera frame by the repaired pose (`_finite_pose`). Otherwise
+    the integrate dispatcher runs its mode gated by `good`, and
+    `raycast(vol, cam2vol, intr, params, gate=good)` starts from the
+    repaired pose. The JAX fused step's `lax.switch` is TPU staging and has
+    no counterpart here, and K7 (`pin_natural`, which pins the switch
+    results' TPU layout) is the identity: the volume keeps its layout.
+
+    One rank of a sharded volume (parallel/sharded.py) passes its slab's
+    `z_offset` and `shard_dim`, `fused` and its two raycasts. While a
+    profiler records, the stages are the spans `kinfu.step.integrate`,
+    `.raycast` and `.reset`."""
+    if fused is None:
+        fused = fused_supported(vol.tsdf.shape, params, vol.tsdf.device)
     with span("kinfu.step.integrate"):
-        integrate(vol, depth_m, color_rgb, vol2cam, intr, params, gate=good)
+        faces = faces_needed(vol2cam, intr) & good if fused else None
+        integrate(vol, depth_m, color_rgb, vol2cam, intr, params, z_offset, shard_dim,
+                  gate=None if fused else good, faces=faces)
     with span("kinfu.step.raycast"):
-        rv, rn = raycast(vol, _finite_pose(cam2vol), intr, params, gate=good)
+        if fused:
+            vmap, nmap = to_camera(*composite(vol.tsdf, cam2vol, intr, params, faces),
+                                   _finite_pose(cam2vol))
+        else:
+            vmap, nmap = raycast(vol, _finite_pose(cam2vol), intr, params, gate=good)
     if reset_on_fail:
         with span("kinfu.step.reset"):
-            for a in vol:
-                a.mul_(good.to(a.dtype))
-    return vol, rv, rn
+            reset_failed_(vol, good)
+    return vol, vmap, nmap
 
 
 def kinfu_step(
@@ -139,22 +184,15 @@ def kinfu_step(
 
     auto_reset=True wipes map and pose on a tracking failure
     (kinectfusion.cpp:97-102); auto_reset=False keeps the state for a
-    relocalizer. The fused update serves the configurations of
-    `fused_supported`, the integrate and raycast dispatchers every other
-    one (on the CPU, "auto" is the gather integrate and the "hier"
-    raycast, as in the JAX package); either ICP mode
-    (`tracking/icp.py::resolve_icp_mode`)."""
+    relocalizer. The volume update is `update_volume` (on the CPU, "auto"
+    is the gather integrate and the "hier" raycast, as in the JAX
+    package); either ICP mode (`tracking/icp.py::resolve_icp_mode`)."""
 
     def track(vmaps, nmaps):
         return rigid_icp(vmaps, nmaps, state.model_vmaps, state.model_nmaps, intr, params)
 
-    def update(vol, depth_m, vol2cam, cam2vol, good):
-        if fused_supported(vol.tsdf.shape, params, vol.tsdf.device):
-            return fused_update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
-                                reset_on_fail=auto_reset)
-        return _update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
-                       reset_on_fail=auto_reset)
-
+    update = functools.partial(update_volume, color_rgb=color_rgb, intr=intr, params=params,
+                               reset_on_fail=auto_reset)
     return step_with(state, depth_mm, params, intr, track, update, auto_reset)
 
 
@@ -170,8 +208,8 @@ def step_with(state: KinFuState, depth_mm: torch.Tensor, params: KinFuParams,
     streaming step's moving grid, pipeline/streaming.py); by default it is
     the configured fixed one. While a profiler records, the measurement is
     the span `kinfu.step.frontend` and `track` is `kinfu.step.icp`; the
-    update's own spans are `kinfu.step.shift`, `.integrate`, `.raycast`
-    and `.reset`."""
+    update's own spans are `kinfu.step.integrate`, `.raycast` and `.reset`
+    (`update_volume`), after the streaming step's `kinfu.step.shift`."""
     dev = state.vol.tsdf.device
 
     with span("kinfu.step.frontend"):

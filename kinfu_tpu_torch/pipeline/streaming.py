@@ -7,11 +7,11 @@ from the configured origin. Each tracked frame may shift the grid
 depth in front of the camera stays inside the volume's central box. The
 step is the fixed-volume step's body (`pipeline/kinfu.py::step_with`) with
 that placement: the shift is a device tensor, so nothing waits for the
-device. On the fused path the shift is `fused_update`'s `pre` hook; on the
-non-fused path it runs before the integrate and raycast dispatchers. Both
-shift the state's volume in place (`shift_volume_`): on the card the step
-runs on the kernels K1-K5 and the shift on S1 (csrc/shift_volume.cu),
-which the JAX package computes outside any Pallas kernel.
+device. The shift moves the state's volume in place (`shift_volume_`)
+before the volume update (`pipeline/kinfu.py::update_volume`), on the
+fused path and the non-fused one alike: on the card the step runs on the
+kernels K1-K5 and the shift on S1 (csrc/shift_volume.cu), which the JAX
+package computes outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -25,13 +25,11 @@ from kinfu_tpu_torch.config import KinFuParams
 from kinfu_tpu_torch.device import constant, resolve_device
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.geometry.se3 import Pose, inverse, transform_points
-from kinfu_tpu_torch.ops.fused_step import fused_supported, fused_update
-from kinfu_tpu_torch.pipeline.kinfu import _update, init_state, step_with
+from kinfu_tpu_torch.pipeline.kinfu import init_state, step_with, update_volume
 from kinfu_tpu_torch.pipeline.state import KinFuState, StepOutput
 from kinfu_tpu_torch.tracking.icp import rigid_icp
 from kinfu_tpu_torch.utils.profiling import span
 from kinfu_tpu_torch.volume.stream import camera_centering_shift, shift_volume_
-from kinfu_tpu_torch.volume.tsdf import TSDFVolume
 
 
 class StreamingState(NamedTuple):
@@ -104,12 +102,10 @@ def streaming_step(
         # the JAX fail branches keep the unshifted volume; a failed frame
         # resets it here anyway, and the gate keeps the shift off it
         shift = torch.where(good, placed["shift"], 0)
-        if fused_supported(vol.tsdf.shape, params, dev):
-            return fused_update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good,
-                                pre=lambda arrs: tuple(shift_volume_(TSDFVolume(*arrs), shift)))
         with span("kinfu.step.shift"):
             vol = shift_volume_(vol, shift)
-        return _update(vol, depth_m, color_rgb, vol2cam, cam2vol, intr, params, good)
+        return update_volume(vol, depth_m, vol2cam, cam2vol, good, color_rgb=color_rgb,
+                             intr=intr, params=params)
 
     ks_n, out = step_with(ks, depth_mm, params, intr, track, update, place=place)
     origin_n = torch.where(out.tracking_ok, placed["origin"], 0)

@@ -87,6 +87,7 @@ def integrate(
     z_offset: int = 0,
     shard_dim: int = 0,
     gate: torch.Tensor | None = None,
+    faces: torch.Tensor | None = None,
 ) -> TSDFVolume:
     """Fuse one (depth [H,W] metres, colour [H,W,3] uint8) observation
     into `vol`, in place, and return it.
@@ -98,15 +99,21 @@ def integrate(
     voxel along natural array dim `shard_dim` (0 = volume Z, 1 = volume Y)
     is global index `z_offset` (a host int). The warped path folds the
     offset into the pose (`fold_shard_origin`), the gather path into the
-    voxel positions, as the JAX dispatcher does."""
-    mode = resolve_integrate_mode(params, vol.tsdf.shape, vol.tsdf.device, shard_dim)
+    voxel positions, as the JAX dispatcher does. `faces`, bool [6] device
+    face flags (the fused update's, pipeline/kinfu.py::update_volume),
+    runs the warped path under them in place of the frustum's."""
+    if faces is not None:
+        mode = "warped"
+    else:
+        mode = resolve_integrate_mode(params, vol.tsdf.shape, vol.tsdf.device, shard_dim)
     if mode == "warped":
         from kinfu_tpu_torch.ops.face_integrate import integrate_warped
 
         return integrate_warped(
             vol, depth_m, color_rgb,
             fold_shard_origin(vol2cam, z_offset, shard_dim, params.voxel_size),
-            intr, params, gate=gate, shard_dim=shard_dim)
+            intr, params, faces="auto" if faces is None else faces, gate=gate,
+            shard_dim=shard_dim)
     integrate_gather(vol, depth_m, color_rgb, vol2cam, intr, params, gate, z_offset,
                      shard_dim)
     return vol

@@ -47,6 +47,15 @@ def reset_volume(vol: TSDFVolume) -> TSDFVolume:
     return vol
 
 
+def reset_failed_(vol: TSDFVolume, good: torch.Tensor) -> TSDFVolume:
+    """Zero all fields in place where the device bool `good` is False (a
+    failed frame's reset, kinectfusion.cpp:97-102): a multiply by the flag,
+    so nothing waits for the device."""
+    for a in vol:
+        a.mul_(good.to(a.dtype))
+    return vol
+
+
 def tsdf_to_float(fixed: torch.Tensor) -> torch.Tensor:
     """int16 fixed-point -> float32 in [-1, 1]."""
     return fixed.float() * (1.0 / SHORTMAX)

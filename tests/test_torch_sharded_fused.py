@@ -22,12 +22,12 @@ from kinfu_tpu_torch.data.synthetic import default_test_scene, make_translation_
 from kinfu_tpu_torch.geometry.intrinsics import Intrinsics
 from kinfu_tpu_torch.parallel.mesh import spawn
 from kinfu_tpu_torch.parallel.sharded import (
-    fused_supported_local,
+    global_shape,
     init_state_local,
     make_sharded_step_fn,
     unshard_state,
 )
-from kinfu_tpu_torch.pipeline.kinfu import init_state, make_step_fn
+from kinfu_tpu_torch.pipeline.kinfu import fused_supported, init_state, make_step_fn
 from kinfu_tpu_torch.pipeline.state import state_to_numpy
 
 torch.set_num_threads(2)
@@ -57,7 +57,9 @@ def _rank(mesh, frames):
     for sd in (0, 1):
         m = dataclasses.replace(mesh, shard_dim=sd)
         state = init_state_local(PARAMS, INTR, m)
-        assert fused_supported_local(state.vol.tsdf.shape, m, PARAMS, m.device)
+        local = state.vol.tsdf.shape
+        assert (fused_supported(global_shape(local, m), PARAMS, m.device, sd)
+                and fused_supported(local, PARAMS, m.device, sd))
         step = make_sharded_step_fn(PARAMS, INTR, m)
         outs = []
         for d, c in frames:

@@ -5,7 +5,7 @@ rank's slab 6144x128x4096 (3.22 G voxels, 24 GiB), on the "meta" device,
 whose tensors have shapes and no storage.
 
   - `init_state_local` and `global_shape`: the slab's shape and count, and
-    the fused update served (`fused_supported_local`);
+    the fused rule (`fused_supported`) on the global and the local shape;
   - `halo_exchange` (its collective stood in by the identity): the padded
     slab's shape and the 6.4 GB reduced, counted exactly;
   - `ray_shard`: each face's global plane and row counts and the slab's
@@ -29,12 +29,12 @@ from kinfu_tpu_torch.ops.facewarp import face_frames
 from kinfu_tpu_torch.parallel import mesh as pmesh
 from kinfu_tpu_torch.parallel.sharded import (
     HALO8,
-    fused_supported_local,
     global_shape,
     init_state_local,
     ray_shard,
     row_shard,
 )
+from kinfu_tpu_torch.pipeline.kinfu import fused_supported
 from kinfu_tpu_torch.volume.integrate import fold_shard_origin
 
 CONFIG = Path(__file__).resolve().parents[1] / "kfbench" / "configs" / "kinfu-shard-floor.json"
@@ -69,7 +69,8 @@ def test_slab_shape_and_count(rank):
     assert sum(a.numel() * a.element_size() for a in state.vol) == 24 * 2**30
     assert global_shape(LOCAL, m) == (6144, 512, 4096)
     assert np.prod(global_shape(LOCAL, m), dtype=np.int64) * 8 == 96 * 2**30
-    assert fused_supported_local(LOCAL, m, params, "cuda")
+    assert (fused_supported(global_shape(LOCAL, m), params, "cuda", 1)
+            and fused_supported(LOCAL, params, "cuda", 1))
 
 
 @pytest.mark.parametrize("rank", range(WORLD))

@@ -16,9 +16,9 @@ kinfu_tpu_torch/pipeline/streaming.py) against the JAX package.
     FMA and with at most SSE4.2 (tests/torch_jaxref.py), where the gather
     integrate is bit for bit;
   - the mirror of tests/test_fused_streaming.py: the port's fused
-    streaming step (the shift as `fused_update`'s `pre` hook, K2-K5's
-    plain versions) against its non-fused one with the same warped
-    kernels, at that file's configuration and assertions;
+    streaming step (K2-K5's plain versions) against its non-fused one
+    with the same warped kernels, at that file's configuration and
+    assertions; both shift the grid before the volume update;
   - an all-zero frame after a shift: the map is wiped, the grid returns to
     the configured origin and the next frame bootstraps, on both paths.
 """
@@ -232,8 +232,9 @@ def test_streaming_step_matches_jax(walk):
 
 def test_fused_streaming_matches_non_fused():
     """tests/test_fused_streaming.py on the port: the fused streaming step
-    (the shift as `fused_update`'s `pre` hook) reproduces the non-fused one
-    (the shift, then the warped dispatchers) with the same plain kernels:
+    (the shift, then the warped kernels under the fusion's face flags)
+    reproduces the non-fused one (the shift, then the warped dispatchers
+    under their own) with the same plain kernels:
     the same grid offsets, not zero, poses within 1e-5, TSDF within 1e-6."""
     scene = default_test_scene()
     traj = make_orbit_trajectory(3, angle_step_deg=0.3)

@@ -43,13 +43,19 @@ from kinfu_tpu_torch.geometry.se3 import (
 from kinfu_tpu_torch.ops.face_integrate import faces_needed, integrate_warped
 from kinfu_tpu_torch.ops.face_raycast import faces_needed_cam2vol, raycast_warped
 from kinfu_tpu_torch.ops.facewarp import face_frames
-from kinfu_tpu_torch.ops.fused_step import fused_update
+from kinfu_tpu_torch.pipeline.kinfu import fused_supported, update_volume
 from kinfu_tpu_torch.volume import raycast as rc
 from kinfu_tpu_torch.volume.integrate import (
     integrate,
     resolve_integrate_mode,
 )
-from kinfu_tpu_torch.volume.tsdf import create_volume, pack_rgb, tsdf_to_float, unpack_rgb
+from kinfu_tpu_torch.volume.tsdf import (
+    TSDFVolume,
+    create_volume,
+    pack_rgb,
+    tsdf_to_float,
+    unpack_rgb,
+)
 
 torch.set_num_threads(2)
 
@@ -403,22 +409,26 @@ def test_raycast_warped_matches_jax(fused128):
 
 def test_fused_update_matches_separate_kernels(fused128):
     """tests/test_dispatch.py::test_fused_update_matches_separate_kernels on
-    the port: `fused_update` equals `integrate_warped` followed by
-    `raycast_warped`, its failure branch resets the volume, and with
-    reset_on_fail=False keeps it."""
+    the port: `update_volume` under the fused rule equals `integrate_warped`
+    followed by `raycast_warped`, its failure branch resets the volume, and
+    with reset_on_fail=False keeps it."""
     _, poses = fused128
     T, d, c = _scene_frames([np.eye(4, dtype=np.float32)])[0]
     depth = torch.as_tensor(d * np.float32(WPARAMS.depth_scale))
     color = torch.as_tensor(c)
     v2c, c2v = _vol2cam(T, WPARAMS), _cam2vol(T, WPARAMS)
+    fused = WPARAMS.replace(fused_mode="on")
+    assert fused_supported(WPARAMS.volume_dims, fused, CPU)
+
+    def update(vol, good, **kw):
+        return update_volume(vol, depth, v2c, c2v, torch.tensor(good), color_rgb=color,
+                             intr=INTR, params=fused, **kw)
 
     ref = create_volume(WPARAMS.volume_dims, device="cpu")
     integrate_warped(ref, depth, color, v2c, INTR, WPARAMS)
     ref_vm, ref_nm = raycast_warped(ref, c2v, INTR, WPARAMS)
 
-    vol = create_volume(WPARAMS.volume_dims, device="cpu")
-    f_vol, f_vm, f_nm = fused_update(vol, depth, color, v2c, c2v, INTR, WPARAMS,
-                                     good=torch.tensor(True))
+    f_vol, f_vm, f_nm = update(create_volume(WPARAMS.volume_dims, device="cpu"), True)
     for a, b in zip(f_vol, ref):
         assert torch.equal(a, b)
     np.testing.assert_allclose(f_vm.numpy(), ref_vm.numpy(), rtol=0, atol=1e-5)
@@ -426,9 +436,31 @@ def test_fused_update_matches_separate_kernels(fused128):
     assert (f_nm != 0).any(-1).float().mean() > 0.5
 
     kept = [a.clone() for a in ref]
-    k_vol, k_vm, _ = fused_update(ref, depth, color, v2c, c2v, INTR, WPARAMS,
-                                  good=torch.tensor(False), reset_on_fail=False)
+    k_vol, k_vm, _ = update(ref, False, reset_on_fail=False)
     assert all(torch.equal(a, b) for a, b in zip(k_vol, kept)) and not k_vm.any()
-    r_vol, r_vm, r_nm = fused_update(ref, depth, color, v2c, c2v, INTR, WPARAMS,
-                                     good=torch.tensor(False))
+    r_vol, r_vm, r_nm = update(ref, False)
     assert not any(bool(a.any()) for a in r_vol) and not r_vm.any() and not r_nm.any()
+
+
+def test_non_fused_update_raycasts_from_the_repaired_pose(fused128):
+    """Off the fused rule, `update_volume` repairs a non-finite cam2vol
+    before its raycast, as the JAX step does: the maps are the raycast's
+    from the identity, which here sees part of the surface, where a
+    raycast from the pose as given sees none. (Under the fused rule the sweeps take the
+    pose as given and only the camera-frame maps take the repair.)"""
+    vol, poses = fused128
+    vol = TSDFVolume(*(a.clone() for a in vol))
+    params = WPARAMS.replace(fused_mode="off", raycast_mode="warped")
+    T = poses[1]
+    bad = _cam2vol(T, WPARAMS)
+    bad = Pose(bad.R, bad.t * torch.tensor([float("nan"), 1.0, 1.0]))
+    good = torch.tensor(True)
+    want = rc.raycast(vol, identity_pose(), INTR, params, gate=good)
+    as_given = rc.raycast(vol, bad, INTR, params, gate=good)
+    assert (want[1] != 0).any()
+    assert not as_given[0].any() and not as_given[1].any()
+    depth = torch.zeros((INTR.height, INTR.width))
+    color = torch.zeros((INTR.height, INTR.width, 3), dtype=torch.uint8)
+    _, vm, nm = update_volume(vol, depth, _vol2cam(T, WPARAMS), bad, good, color_rgb=color,
+                              intr=INTR, params=params)
+    assert torch.equal(vm, want[0]) and torch.equal(nm, want[1])
