@@ -20,8 +20,12 @@ Phases; any failure exits non-zero before the result line:
      unwritten stack holds a sentinel), K3 face_integrate and K4 sweep_rays
      on that 512^3 volume and frame 3 (all six cube faces seen from the
      orbit pose, and each face seen from the volume's centre looking along
-     it); K5 resample_face, the resample and composite of all six faces in
-     one launch, on the orbit's view and the six centre views; K3's and
+     it); R1 face_fields, the shading of all six faces in one launch, on
+     the orbit's view and the six centre views, every face swept and with
+     the step's gates (t and valid bit for bit, normals within 1e-6, none
+     flipped), timed eagerly and replayed from a CUDA graph beside its byte
+     bound; K5 resample_face, the resample and composite of all six faces in
+     one launch, on the same views; K3's and
      K4's time for a gated-off call, K3's footprint voxels beside the voxels
      of its admitted planes, and K4's count of rays whose hit or back bits
      differ from the plain version's (no profiler before phase 6: once
@@ -38,8 +42,8 @@ Phases; any failure exits non-zero before the result line:
      counts set to 0 just before, each step under sync-debug mode "error"
      (a host sync in the step fails the run); every frame after the first
      must track, the aligned ATE against exact ground truth must be <= 1 mm,
-     K1 must launch 19 times a frame, K2 and K5 once, every other kernel at
-     least once; the same frames through tools/accuracy_run.py's `track`
+     K1 must launch 19 times a frame, K2, R1 and K5 once, every other kernel
+     at least once; the same frames through tools/accuracy_run.py's `track`
      and `metrics`, whose ATE must equal the orbit's; then 10 frames with
      icp_mode="gather", also under sync-debug mode "error", which must
      track without launching K1;
@@ -50,11 +54,11 @@ Phases; any failure exits non-zero before the result line:
      some frames); then K2-K5 against their plain versions at its last
      frame, where the +z and +x faces are live;
   4c. the orbit's 50 frames through kinfu_step with fused_mode="off" (the
-     integrate and raycast dispatchers on K2 + K3 and K4 + face shading +
-     K5, the raycast gated by its cam2vol face flags), each step under
+     integrate and raycast dispatchers on K2 + K3 and K4 + R1 + K5, the
+     raycast gated by its cam2vol face flags), each step under
      sync-debug mode "error": every frame after the first tracks, the
      aligned ATE is <= 1 mm, the poses are within 1e-4 m of phase 4's fused
-     ones, a frame launches K1 19 times, K2 and K5 once, K3 and K4 six
+     ones, a frame launches K1 19 times, K2, R1 and K5 once, K3 and K4 six
      times each; prints the frames where the cam2vol and vol2cam face sets
      differ;
   4e. the march raycasts, which JAX runs outside Pallas and the port on
@@ -89,7 +93,8 @@ Phases; any failure exits non-zero before the result line:
      process at 5 frames;
   5. the same 50 frames through KinFuSession with its default device, numpy
      frames in, the counts set to 0 just before: every frame tracks, the
-     aligned ATE is <= 1 mm, the pose record agrees with phase 4's; the
+     aligned ATE is <= 1 mm, the pose record agrees with phase 4's, K1
+     launches 19 times a frame, K2, R1 and K5 once; the
      Phong render, the point cloud, the PLY and pose files, and a
      checkpoint that is loaded and tracks one more frame;
   5b. the first 20 orbit frames written as a bundled dataset (PNGs and
@@ -161,8 +166,10 @@ Phases; any failure exits non-zero before the result line:
      frame), K4 on each halo-padded slab (hit bits equal, back events by
      phase 3's rule) and the ranks' minimum against the unsharded K4 (at
      most 0.1% of a face's rays may differ), on the orbit view and the six
-     centre views; K1's one-iteration form on each of 4 row shards of every
-     level, and their sum against the whole; CUDA-event times of the shard
+     centre views, then R1 on the orbit view's six reduced events [6, 2, F,
+     F] as a rank shades them, against face_fields_plain; K1's
+     one-iteration form on each of 4 row shards of every level, and their
+     sum against the whole; CUDA-event times of the shard
      forms beside the unsharded launches, and their bounds. K3's shard form
      where a sweep's planes pass 48 KB of shared memory: 4 Y slabs of
      6144x16x256 (the cell shard.big-orbit's planes and voxel) fusing
@@ -172,7 +179,7 @@ Phases; any failure exits non-zero before the result line:
      built) run the orbit's 50 frames Z-sharded and Y-sharded through the
      fused sharded step, and 10 frames Z-sharded with fused_mode="off":
      every frame after the first tracks, the aligned ATE is <= 1 mm, each
-     rank launches K1 19 times a frame, K2 and K5 once, K3 and K4 six
+     rank launches K1 19 times a frame, K2, R1 and K5 once, K3 and K4 six
      times; each leg's step of frames 10, 30 and 45 from phase 4's state of
      the frame before gives phase 4's pose within 1e-6 m and its ICP inlier
      count within 0.01%, and the gathered volume and model map of frame 30
@@ -202,8 +209,8 @@ Phases; any failure exits non-zero before the result line:
   7. the sanitizer pass (kinfu_tpu_torch/tools/sanitize.py) in child
      processes, in the bounds-checked build of the kernels that phase 2
      built beside the normal one (compute-sanitizer refuses this card's
-     machine): every form of K1-K5, the shard forms, M1 (both forms) and
-     M2 at the main path's
+     machine): every form of K1-K5 and R1, the shard forms, M1 (both forms)
+     and M2 at the main path's
      shapes and at test scale must run without a fault and launch each
      kernel; then K5 with a vertex buffer one row short must trap;
   7b. the stand-in for compute-sanitizer's racecheck, initcheck and
@@ -266,6 +273,8 @@ KERNELS = (
      "kinfu_tpu/ops/pallas_raycast.py:114"),
     ("resample_face", "K5 resample_face", "kinfu_tpu_torch/csrc/resample_face.cu",
      "kinfu_tpu/ops/pallas_raycast.py:579"),
+    ("face_fields", "R1 face_fields", "kinfu_tpu_torch/csrc/face_fields.cu",
+     "kinfu_tpu/ops/pallas_raycast.py:482 (_face_fields, XLA outside Pallas)"),
 )
 
 #: K1 tolerance on A and b, relative to their largest |entry| (the sums run
@@ -309,10 +318,15 @@ F32_FLOPS = 67e12
 #: a plane's footprint (projection and ownership), per voxel it updates and
 #: per voxel whose colour it mixes; K4 per ray-plane step; K5 per camera
 #: pixel and gated face (the primed ray and the ownership test) and per
-#: camera pixel (its owner's resample and unprime)
+#: camera pixel (its owner's resample and unprime); R1 per face pixel (the
+#: sums, the vertex, the cross product, two norms, the flip and the fill)
 OPS = {"icp_normal_eqs": 150, "build_face": 40, "face_integrate_gate": 24,
        "face_integrate_update": 24, "face_integrate_colour": 20, "sweep_rays": 15,
-       "resample_face_own": 20, "resample_face": 40}
+       "resample_face_own": 20, "resample_face": 40, "face_fields": 120}
+#: R1 against face_fields_plain: normals within this (the plain version's
+#: torch kernels contract products into fused multiply-adds, R1 does not);
+#: t and valid bit for bit
+R1_N_TOL = 1e-6
 
 
 def bound(nbytes: int, ops: int):
@@ -542,7 +556,7 @@ def check_kernels(state, frame, views, params, intr, device, timed=None):
     vs = params.voxel_size
     vol = state.vol
     res = {k: [0.0, float("nan"), float("nan"), float("nan"), ""]
-           for k, *_ in KERNELS if k not in ("icp_normal_eqs", "resample_face")}
+           for k, *_ in KERNELS if k not in ("icp_normal_eqs", "resample_face", "face_fields")}
     k4_agree, k4_differ, n_checked = [], 0, 0
 
     for view, T, names in views:
@@ -669,15 +683,73 @@ def check_kernels(state, frame, views, params, intr, device, timed=None):
     return res
 
 
+def check_shading(hits, backs, prm, rspec, tag: str, device, timed: bool = False):
+    """R1 (`face_fields`, every face in one launch) against
+    `face_fields_plain` face by face on the same events: t and valid bit
+    for bit, normals within R1_N_TOL and none flipped (printed: the
+    normals past 1e-9 and the flips), and some valid pixel. With `timed`,
+    times R1 and the plain version (CUDA events: one eager call, and
+    replayed from a CUDA graph as the step replays them) beside R1's byte
+    bound (hit and back read, t, n and valid written once). Returns
+    [max |n gap|, ms, plain_ms, bound_ms, bound_by, graph_ms,
+    plain_graph_ms]."""
+    import torch
+
+    from kinfu_tpu_torch.ops import face_raycast as fr
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    nan = float("nan")
+
+    def plain():
+        fields = [fr.face_fields_plain(h, b, prm[f, 9:12], rspec)
+                  for f, (h, b) in enumerate(zip(hits, backs))]
+        return tuple(torch.stack(x) for x in zip(*fields))
+
+    tk, nk, vk = fr.face_fields(hits, backs, prm, rspec)
+    tp, np_, vp = plain()
+    sync()
+    t_bits = int((tk.view(torch.int32) != tp.view(torch.int32)).sum())
+    v_diff = int((vk != vp).sum())
+    gap = (nk - np_).abs()
+    err = float(gap.max())
+    past = int((gap > 1e-9).any(-1).sum())
+    flips = int(((nk * np_).sum(-1) < 0).sum())
+    print(f"  R1 {tag}: {int(vk.sum())} valid face pixels (plain {int(vp.sum())}); {t_bits} t "
+          f"values with other bits, {v_diff} valid flags differ; normals: max |R1 - plain| "
+          f"{err:.3g}, {past} past 1e-9, {flips} flipped", flush=True)
+    if t_bits or v_diff or not err <= R1_N_TOL or flips:
+        _fail(f"R1 {tag}: the shading differs from face_fields_plain")
+    if not bool(vk.any()):
+        _fail(f"R1 {tag}: no valid face pixel, so the comparison tested nothing")
+    res = [err, nan, nan, nan, "", nan, nan]
+    if timed and device.type == "cuda":
+        res[1] = cuda_ms(lambda: fr.face_fields(hits, backs, prm, rspec))
+        res[2] = cuda_ms(plain, reps=10, warmup=1)
+        res[3:5] = bound(nbytes(*hits, *backs, tk, nk, vk), OPS["face_fields"] * tk.numel())
+        for k, fn in ((5, lambda: fr.face_fields(hits, backs, prm, rspec)), (6, plain)):
+            fn()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            res[k] = cuda_ms(graph.replay)
+            del graph
+        print(f"  R1 {tag}: kernel {res[1]:.4f} ms (one call), {res[5]:.4f} ms replayed from a "
+              f"CUDA graph; plain {res[2]:.4f} ms, {res[6]:.4f} ms replayed; bound "
+              f"{res[3]:.4f} ms ({res[4]})", flush=True)
+    return res
+
+
 def check_composite(state, views, params, intr, device, timed=None):
-    """Phase 3, K5: the one-launch resample and composite of all six faces
-    against its plain version, on each view of `views` [(tag, world-from-
-    camera pose)]. The faces' fields come from K4 and face_fields, gated by
-    faces_needed as the step gates them. The valid mask, the vertices and
-    the normals must be equal (the count of values whose bits differ, a
-    signed zero, is printed), and each view must have valid pixels. Times
-    the view tagged `timed`. Returns [max_abs_err, ms, plain_ms, bound_ms,
-    bound_by]."""
+    """Phase 3, R1 and K5, on each view of `views` [(tag, world-from-camera
+    pose)]: R1's shading of all six faces against its plain version
+    (`check_shading`) on K4's events of every face and of the faces gated
+    by faces_needed as the step gates them; then K5's one-launch resample
+    and composite of the six faces against its plain version, on R1's
+    fields of the step's gates. The valid mask, the vertices and the
+    normals must be equal (the count of values whose bits differ, a signed
+    zero, is printed), and each view must have valid pixels. Times the
+    view tagged `timed`. Returns {"face_fields": R1's record,
+    "resample_face": [max_abs_err, ms, plain_ms, bound_ms, bound_by]}."""
     import torch
 
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
@@ -691,14 +763,22 @@ def check_composite(state, views, params, intr, device, timed=None):
     size, focal = params.raycast_face
     rspec = fr.RaySpec(int(size), float(focal))
     res = [0.0, float("nan"), float("nan"), float("nan"), ""]
+    r1 = [0.0] + [float("nan")] * 3 + [""] + [float("nan")] * 2
+    every = torch.ones(fw.FACES, dtype=torch.bool, device=device)
     for tag, T in views:
         cam = pose_from_matrix(torch.as_tensor(T, dtype=torch.float32, device=device))
         cam2vol = compose(inverse(volp), cam)
         gates = fi.faces_needed(compose(inverse(cam), volp), intr)
         prm = fr.composite_params(cam2vol, params)
-        fields = [fr.sweep_and_shade(state.vol.tsdf, f, prm[k, 9:12], params, rspec, gates[k])
-                  for k, f in enumerate(fw.face_frames())]
-        args = ([t for t, _ in fields], [n for _, n in fields], prm, gates, intr, rspec)
+        for on, label in ((every, "every face swept"), (gates, f"gates {gates.int().tolist()}")):
+            events = fr.sweep_faces(state.vol.tsdf, prm, params, rspec, on)
+            timed_here = tag == timed and on is every
+            got = check_shading(*events, prm, rspec, f"{tag}, {label}", device, timed_here)
+            r1[0] = max(r1[0], got[0])
+            if timed_here:
+                r1[1:] = got[1:]
+        t_f, n_f, _ = fr.face_fields(*events, prm, rspec)
+        args = (t_f.unbind(0), n_f.unbind(0), prm, gates, intr, rspec)
         vk, nk, okk = fr.resample_composite(*args)
         vp, np_, okp = fr.resample_composite_plain(*args)
         sync()
@@ -727,7 +807,7 @@ def check_composite(state, views, params, intr, device, timed=None):
                                            + OPS["resample_face"]))
             print(f"  K5 {tag}: reads {read} face pixels; bound {res[3]:.4f} ms ({res[4]})",
                   flush=True)
-    return res
+    return {"face_fields": r1, "resample_face": res}
 
 
 def check_icp(state, frame, params, intr, device):
@@ -1202,9 +1282,11 @@ def run_cli(frames, gt, ref_poses, params, intr, out_dir: Path, n: int):
           f"{gap:.3g}; launches {launches}", flush=True)
     if not all(oks) or gap > SESSION_POSE_TOL:
         _fail(f"CLI: the in-process session differs from the CLI's poses by {gap}")
-    if launches.get("build_face") != n or launches.get("resample_face") != n:
-        _fail(f"CLI: the session launched K2 {launches.get('build_face')} and K5 "
-              f"{launches.get('resample_face')} times in {n} frames, not once a frame each")
+    if launches.get("build_face") != n or launches.get("resample_face") != n \
+            or launches.get("face_fields") != n:
+        _fail(f"CLI: the session launched K2 {launches.get('build_face')}, R1 "
+              f"{launches.get('face_fields')} and K5 {launches.get('resample_face')} times in "
+              f"{n} frames, not once a frame each")
 
     for flag, summary in (("--relocalize", "relocalize: "), ("--pose-graph", "pose graph: ")):
         tag = flag.lstrip("-")
@@ -1276,14 +1358,14 @@ def gate_runs(gates: np.ndarray) -> str:
 
 def check_launches(launches, n: int, k1_want: int, where: str) -> None:
     """Every kernel launched on the run of `n` frames; K1 19 times a frame
-    from one call, K2 (all six face stacks) and K5 (all six faces'
-    composite) once a frame."""
+    from one call, K2 (all six face stacks), R1 (all six faces' shading)
+    and K5 (all six faces' composite) once a frame."""
     for key, name, *_ in KERNELS:
         if launches.get(key, 0) <= 0:
             _fail(f"{name} was not launched in {where}")
     if launches["icp_normal_eqs"] != k1_want:
         _fail(f"K1 launched {launches['icp_normal_eqs']} times in {where}, not {k1_want}")
-    for key in ("build_face", "resample_face"):
+    for key in ("build_face", "face_fields", "resample_face"):
         if launches[key] != n:
             _fail(f"{key} launched {launches[key]} times in {where}, not once a frame ({n})")
 
@@ -1344,7 +1426,7 @@ def run_corner(frames, gt, params, intr, device, res, k1_want: int, smi: str) ->
     if len(live) < 2:
         _fail(f"corner orbit: frame {n - 1} has live faces {live}, not two")
     got = check_kernels(state, frames[-1], [("corner", T, live)], params, intr, device)
-    got["resample_face"] = check_composite(state, [("corner", T)], params, intr, device)
+    got.update(check_composite(state, [("corner", T)], params, intr, device))
     for key, r in got.items():
         res[key][0] = max(res[key][0], r[0])
     del state
@@ -1419,7 +1501,8 @@ def run_nonfused(frames, gt, params, intr, device, fused_poses, smi: str):
     if gap > NONFUSED_POSE_TOL:
         _fail(f"non-fused step: poses {gap} from the fused step's")
     check_counts(launches, {"icp_normal_eqs": 19 * n, "build_face": n, "resample_face": n,
-                            "face_integrate": 6 * n, "sweep_rays": 6 * n}, "the non-fused step")
+                            "face_fields": n, "face_integrate": 6 * n, "sweep_rays": 6 * n},
+                 "the non-fused step")
     return launches, ms_frame, poses
 
 
@@ -1506,7 +1589,8 @@ def run_relocalize(frames, gt, params, intr, smi: str, **session_kw) -> dict:
     if res != [False, False] or not kept:
         _fail("relocalization: an all-zero frame tracked, or the map changed across the loss")
     check_counts(lost, {"icp_normal_eqs": 4 * 19, "build_face": 4, "face_integrate": 24,
-                        "sweep_rays": 2 * (6 + 12), "resample_face": 2 * 3},
+                        "sweep_rays": 2 * (6 + 12), "resample_face": 2 * 3,
+                        "face_fields": 2 * 3},
                  "the two failed frames (each: a step, then relocalize_step)")
 
     n_rec = len(sess.pose_record)
@@ -1546,7 +1630,8 @@ def run_relocalize(frames, gt, params, intr, smi: str, **session_kw) -> dict:
     if not ok or gap > RELOC_TOL:
         _fail(f"relocalize_step from a keyframe seed: ok {ok}, translation gap {gap}")
     check_counts(direct, {"icp_normal_eqs": 19, "sweep_rays": 12, "resample_face": 2,
-                          "build_face": 1, "face_integrate": 6}, "relocalize_step")
+                          "face_fields": 2, "build_face": 1, "face_integrate": 6},
+                 "relocalize_step")
     sess.state = st
     before = [t.clone() for t in st.vol]
     st2, out2 = relocalize_step(st, torch.zeros_like(d), torch.zeros_like(c), kf.pose,
@@ -1647,7 +1732,8 @@ def run_pose_graph(params, intr, smi: str, **session_kw) -> dict:
         _fail(f"pose graph: no closure against a non-adjacent keyframe fired: {closures}")
     for n_kf_r, lr in rebuilds:
         check_counts(lr, {"build_face": n_kf_r + 1, "face_integrate": 6 * (n_kf_r + 1),
-                          "sweep_rays": 6, "resample_face": 1}, "the map rebuild")
+                          "sweep_rays": 6, "resample_face": 1, "face_fields": 1},
+                     "the map rebuild")
     if ates[True] > ATE_MAX:
         _fail(f"pose graph: corrected ATE {ates[True] * 1e3:.4f} mm > {ATE_MAX * 1e3} mm")
     if errs[True] > errs[False] * 1.05:
@@ -1952,7 +2038,8 @@ def run_streaming(frames, gt, params, intr, device, smi: str, orbit_ms: float) -
     t_5e = time.perf_counter()
     n = len(frames) - 1
     per_frame = {"icp_normal_eqs": 19 * n, "build_face": n, "resample_face": n,
-                 "face_integrate": 6 * n, "sweep_rays": 6 * n, SHIFT_KERNEL[0]: 3 * n}
+                 "face_fields": n, "face_integrate": 6 * n, "sweep_rays": 6 * n,
+                 SHIFT_KERNEL[0]: 3 * n}
     print(f"[5e] streaming volume: the corridor ({n} frames, {CORRIDOR_STEP[2] * 1e3:g} mm a "
           f"frame along +z) through the fixed volume, streaming_step fused and non-fused, "
           f"and KinFuSession(streaming=True)", flush=True)
@@ -2386,7 +2473,7 @@ def run_marches(frames, gt, params, intr, device, tsdf, T_last, fused_poses, smi
     res = check_marches(tsdf, T_last, params, intr, device, smi)
     n = len(frames)
     base = {"icp_normal_eqs": 19, "build_face": 1, "face_integrate": 6, "sweep_rays": 0,
-            "resample_face": 0}
+            "resample_face": 0, "face_fields": 0}
     legs = {}
     for mode, key, other in (("hier", "march_hier", "march_rays"),
                              ("step", "march_rays", "march_hier")):
@@ -2404,7 +2491,7 @@ def run_marches(frames, gt, params, intr, device, tsdf, T_last, fused_poses, smi
     legs[f"march_{MARCH_DIM}"] = run_march_leg(
         frames[:MARCH_DIM_FRAMES], gt, p, intr, device, smi,
         {"icp_normal_eqs": 19, "march_hier": 1, "march_rays": 0, "build_face": 0,
-         "face_integrate": 0, "sweep_rays": 0, "resample_face": 0},
+         "face_integrate": 0, "sweep_rays": 0, "resample_face": 0, "face_fields": 0},
         f"4e auto at {MARCH_DIM}^3 (resolved to {mode!r}, the gather integrate)")
     legs["inside"] = run_inside(params, intr, device, smi)
     print(f"  phase 4e took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2572,7 +2659,9 @@ def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms:
     halo-padded slab, hit bits equal and the back events by phase 3's rule,
     then the ranks' minimum against the unsharded K4 in the same frame set:
     the hits that come before their back events, which the shading reads
-    (fails where more than SHARD_PMIN_SHARE of a face's rays differ). Every
+    (fails where more than SHARD_PMIN_SHARE of a face's rays differ), and
+    R1 on a view's six reduced events [6, 2, F, F] as a rank shades them,
+    against face_fields_plain (`check_shading`). Every
     listed face of a view but the orbit's must do real work over the
     slabs. K1's one-iteration form on each row shard of frame 3's pyramid
     against its plain version, and the shards' sum against the whole.
@@ -2721,6 +2810,11 @@ def check_shard_kernels(state, frame, views, params, intr, device, phase3_k3_ms:
                           f"the comparison tested nothing")
                 if view != "orbit" and not bool(okc.any()):
                     _fail(f"K4 {view} {'ZY'[sd]} {frm.name}: no ray hit over the slabs")
+            if len(faces) == len(frames_sd):
+                events = torch.stack([torch.stack(comp[f]) for f in range(len(frames_sd))])
+                check_shading([e[0] for e in events], [e[1] for e in events], prm5, rspec,
+                              f"{view} {'ZY'[sd]}: the ranks' reduced events "
+                              f"{list(events.shape)}", device)
             print(f"  {'ZY'[sd]} slabs, {view}: faces {[frm.name for _, frm in faces]} "
                   f"({[frm.axes for _, frm in faces]}); K2, K3 bit for bit on {W} slabs, voxels "
                   f"updated {[work[f] for f, _ in faces]}; K4 hit bits equal, {k4_differ} rays "
@@ -3219,8 +3313,8 @@ def run_sharded(frames, gt, params, intr, device, fused_poses, fused_inliers, nf
         if any(abs(a - b) > SHARD_INLIER_SHARE * b for a, b in inl.values()):
             _fail(f"{path}: a step from phase 4's state counts other ICP inliers: {inl}")
         march = p.raycast_mode == "step"
-        raycast = ({"march_rays": m, "sweep_rays": 0, "resample_face": 0} if march
-                   else {"resample_face": m, "sweep_rays": 6 * m})
+        raycast = ({"march_rays": m, "sweep_rays": 0, "resample_face": 0, "face_fields": 0}
+                   if march else {"resample_face": m, "face_fields": m, "sweep_rays": 6 * m})
         for r, rec in enumerate(recs):
             check_counts(rec["launches"], {"icp_normal_eqs": 19 * m, "build_face": m,
                                            "face_integrate": 6 * m, **raycast},
@@ -3327,7 +3421,7 @@ def run_sanitizer(smi: str) -> None:
     bounds-checked build of the kernels (compute-sanitizer refuses this
     card's machine): every kernel form at the main path's shapes and at
     test scale, each run ending without a fault and launching each of the
-    five kernels, M1, M2 and S1; then the negative run, K5 with an output one row short,
+    kernels K1-K5 and R1, M1, M2 and S1; then the negative run, K5 with an output one row short,
     which must trap, or the check is not live."""
     from kinfu_tpu_torch.tools import sanitize
 
@@ -3667,8 +3761,8 @@ def main() -> None:
                              [("orbit", gt[3], names)]
                              + [(tag, T, (tag.split()[1],)) for tag, T in inside],
                              params, intr, device, timed=("orbit", "+z")))
-    res["resample_face"] = check_composite(state, [("orbit", gt[3])] + inside, params, intr,
-                                           device, timed="orbit")
+    res.update(check_composite(state, [("orbit", gt[3])] + inside, params, intr, device,
+                               timed="orbit"))
     del state
     torch.cuda.empty_cache()
     run_parity(params, intr, device, smi)
@@ -3756,6 +3850,8 @@ def main() -> None:
     s_launches, s_host_ms = run_session(frames, gt, poses, params, intr, SESSION_OUT)
     if s_launches["icp_normal_eqs"] != k1_want:
         _fail(f"K1 launched {s_launches['icp_normal_eqs']} times in the session, not {k1_want}")
+    check_counts(s_launches, {"build_face": n, "face_fields": n, "resample_face": n},
+                 "the session")
     torch.cuda.empty_cache()
     print(f"[5b] CLI: the first {CLI_FRAMES} orbit frames as a bundled dataset under "
           f"{CLI_OUT.relative_to(REPO)}, through python -m kinfu_tpu_torch run and eval",
@@ -3800,7 +3896,7 @@ def main() -> None:
     print(f"  phase 4d took {time.perf_counter() - t_4d:.1f} s", flush=True)
 
     for key, name, *_ in KERNELS:
-        err, ms, plain_ms, bound_ms, bound_by = res[key]
+        err, ms, plain_ms, bound_ms, bound_by = res[key][:5]
         print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), max abs err {err:.3g}, {launches[key] / n:g} launches a frame  "
               f"[{smi}]", flush=True)
@@ -3838,7 +3934,9 @@ def main() -> None:
          "launches": int(launches[key]), "max_abs_err": float(res[key][0]),
          "ms": res[key][1], "plain_ms": res[key][2], "bound_ms": res[key][3],
          "bound_by": res[key][4], "library_ms": None,
-         "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()}}
+         "launches_by_path": {p: int(v.get(key, 0)) for p, v in paths.items()},
+         **({"graph_ms": res[key][5], "plain_graph_ms": res[key][6]}
+            if key == "face_fields" else {})}
         for key, name, src, rep in KERNELS
     ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -5,8 +5,8 @@ Per cube face, rays through the virtual face pixel (i, j) have primed
 direction d' = ((j-c)/f, (i-c)/f, 1). Marching in t = z' - o'_z, one
 nearest-voxel sample per primed plane, a ray records the refined front
 (+ to -) crossing, a back (- to +) crossing, or an outward exit, and stops
-there. The face-grid hit field is shaded in plain PyTorch (`face_fields`)
-and resampled to the camera grid.
+there. The faces' hit fields are shaded by kernel R1 (`face_fields`) and
+resampled to the camera grid by K5.
 
 K4 (`sweep_rays`, csrc/sweep_rays.cu) replaces `_sweep_kernel`
 (kinfu_tpu/ops/pallas_raycast.py:114-284): one CUDA thread per face ray,
@@ -28,6 +28,14 @@ the [1, N-2] bounds and the outward exit are the global volume's, and the
 sharded raycast (parallel/sharded.py) takes the minimum of the ranks'
 events.
 
+R1 (`face_fields`, csrc/face_fields.cu) shades every face in one launch:
+the function JAX computes in XLA outside its Pallas sweep (`_face_fields`,
+L482-576), the 3x3 smoothing of t, the normals from central differences,
+the rim and the silhouette fill, with the neighbours taken modulo the face
+size as `jnp.roll` takes them. One block stages a tile of one face and a
+3-pixel halo in shared memory; the work is 25 B a face pixel, 0.018 ms for
+six faces of 640 x 640 at the card's 3.35 TB/s.
+
 K5 (`resample_composite`, csrc/resample_face.cu) replaces
 `_resample_kernel` (L579-624) and the per-face glue around it: one launch
 a frame, one thread per camera pixel, finds the face that owns the pixel's
@@ -37,18 +45,19 @@ valid mask in the volume frame, as the JAX fused step's composite over
 the faces (kinfu_tpu/ops/fused_step.py:132-144) keeps what the owning face
 gives.
 
-`face_composite` is the sweep and shading of each face under its device
-flag and K5's composite; `to_camera` takes its maps to the camera frame.
+`face_composite` is each face's sweep under its device flag, R1 over the
+six faces and K5's composite; `to_camera` takes its maps to the camera
+frame.
 `raycast_warped`, the warped entry of the `raycast` dispatcher
 (pallas_raycast.py:721-826), runs both under the raycast's own face flags,
 which take the frustum directions through cam2vol
 (`faces_needed_cam2vol`); the fused update (pipeline/kinfu.py::
 update_volume) runs `face_composite` under the fusion's vol2cam flags.
 
-`sweep_rays_plain` and `resample_composite_plain` are their plain PyTorch
-versions; `resample_face_plain` is the one-face resample of the JAX
-package's `_resample_face`, whose arithmetic the composite's plain version
-repeats for each face.
+`sweep_rays_plain`, `face_fields_plain` and `resample_composite_plain`
+are their plain PyTorch versions; `resample_face_plain` is the one-face
+resample of the JAX package's `_resample_face`, whose arithmetic the
+composite's plain version repeats for each face.
 """
 
 from __future__ import annotations
@@ -355,13 +364,13 @@ def sweep_rays(tsdf: torch.Tensor, frame: FaceFrame, prm: torch.Tensor,
     return hit, back
 
 
-def face_fields(hit: torch.Tensor, back: torch.Tensor, origin_p: torch.Tensor,
-                spec: RaySpec):
-    """(t_valid, normal' [F,F,3], nvalid) on the face grid
-    (pallas_raycast.py:482-576): 3x3 smoothing of t, normals from central
-    differences oriented toward the camera, and the silhouette fill. Plain
-    PyTorch, with neighbours from `torch.roll` as JAX takes them from
-    `jnp.roll`."""
+def face_fields_plain(hit: torch.Tensor, back: torch.Tensor, origin_p: torch.Tensor,
+                      spec: RaySpec):
+    """Plain PyTorch version of R1 for one face: (t_valid, normal' [F,F,3],
+    nvalid) on the face grid (pallas_raycast.py:482-576): 3x3 smoothing of
+    t, normals from central differences oriented toward the camera, and
+    the silhouette fill, with neighbours from `torch.roll` as JAX takes
+    them from `jnp.roll`."""
     F = spec.size
     dev = hit.device
     ok = (hit < back) & (hit < _INF)
@@ -420,6 +429,40 @@ def face_fields(hit: torch.Tensor, back: torch.Tensor, origin_p: torch.Tensor,
     t = torch.where(fill, t_avg, t)
     n = torch.where(fill[..., None], n_fill, n)
     return t, n, ok_n | rim | fill
+
+
+def face_fields(hit_f: Sequence[torch.Tensor], back_f: Sequence[torch.Tensor],
+                prm: torch.Tensor, spec: RaySpec):
+    """R1: every face's shading in one launch. `hit_f` and `back_f` hold
+    each face's [F,F] events (K4's), `prm` is K5's parameter block
+    (`composite_params`), whose columns 9:12 are each face's primed camera
+    origin. Returns (t [nf,F,F], normal' [nf,F,F,3], valid [nf,F,F]). CPU
+    tensors take `face_fields_plain` face by face; CUDA tensors launch
+    csrc/face_fields.cu."""
+    if prm.device.type == "cpu":
+        fields = [face_fields_plain(h, b, prm[f, 9:12], spec)
+                  for f, (h, b) in enumerate(zip(hit_f, back_f))]
+        return tuple(torch.stack(x) for x in zip(*fields))
+    kernels.library()
+    nf, F = len(hit_f), spec.size
+    if len(back_f) != nf:
+        raise ValueError("face_fields: expected as many back fields as hit fields")
+    kernels.check_cuda("face_fields", *hit_f, *back_f, prm)
+    for h, b in zip(hit_f, back_f):
+        kernels.check("face_fields", h, torch.float32, (F, F))
+        kernels.check("face_fields", b, torch.float32, (F, F))
+    kernels.check("face_fields", prm, torch.float32, (nf, COMPOSITE_COLS))
+    t = torch.empty((nf, F, F), dtype=torch.float32, device=prm.device)
+    n = torch.empty((nf, F, F, 3), dtype=torch.float32, device=prm.device)
+    valid = torch.empty((nf, F, F), dtype=torch.bool, device=prm.device)
+    kernels.launch(
+        "kinfu_face_fields",
+        kernels.ptr_array(hit_f), kernels.ptr_array(back_f), kernels.ptr(prm),
+        kernels.ptr(t), kernels.ptr(n), kernels.ptr(valid),
+        float(np.float32(spec.centre)), recip(spec.focal), nf, F,
+        kernels.lengths(*hit_f, *back_f, prm, t, n, valid),
+    )
+    return t, n, valid
 
 
 def resample_face_plain(t_f: torch.Tensor, n_f: torch.Tensor, prm: torch.Tensor,
@@ -604,16 +647,18 @@ def resample_composite(t_f: Sequence[torch.Tensor], n_f: Sequence[torch.Tensor],
     return vertex, normal, valid
 
 
-def sweep_and_shade(tsdf: torch.Tensor, frame: FaceFrame, org_p: torch.Tensor,
-                    params: KinFuParams, spec: RaySpec, gate: torch.Tensor):
-    """One face's sweep (K4) and shading: its face-grid (t [F,F],
-    normal' [F,F,3]), +inf and 0 where it has no surface, and everywhere
-    when the device flag `gate` is 0 (pallas_raycast.py:673-689).
-    `org_p` is the face's primed camera origin (`composite_params`)."""
-    vs_p = primed_voxel_size(frame, params.voxel_size)
-    hit, back = sweep_rays(tsdf, frame, ray_params(org_p, vs_p, spec, gate), spec)
-    t_f, n_f, _ = face_fields(hit, back, org_p, spec)
-    return t_f, n_f
+def sweep_faces(tsdf: torch.Tensor, prm: torch.Tensor, params: KinFuParams, spec: RaySpec,
+                gates: torch.Tensor):
+    """Each face's sweep (K4) in face_frames() order under its device flag
+    in `gates`: (hit [F,F] a face, back [F,F] a face), +inf (1e30) where a
+    ray has no event and everywhere on a face whose flag is 0
+    (pallas_raycast.py:673-689). `prm` is K5's block (`composite_params`),
+    whose columns 9:12 each face's sweep takes as its primed origin."""
+    events = [sweep_rays(tsdf, frame, ray_params(prm[f, 9:12],
+                                                 primed_voxel_size(frame, params.voxel_size),
+                                                 spec, gates[f]), spec)
+              for f, frame in enumerate(face_frames())]
+    return [h for h, _ in events], [b for _, b in events]
 
 
 #: a face is swept when a sampled frustum direction is within this margin
@@ -654,19 +699,19 @@ def faces_needed_cam2vol(cam2vol: Pose, intr: Intrinsics,
 
 def face_composite(tsdf: torch.Tensor, cam2vol: Pose, intr: Intrinsics, params: KinFuParams,
                    gates: torch.Tensor, spec: RaySpec | None = None):
-    """Each face's sweep (K4) and shading under its device flag in `gates`
-    (bool [6], face_frames() order), then one launch of K5 that composites
-    the six faces by exact ownership: (vertex, normal, valid) of the camera
-    grid in the volume frame. The JAX package's single-face switch, cond
-    chain and multiply-masks are TPU staging and have no counterpart."""
+    """Each face's sweep (K4) under its device flag in `gates` (bool [6],
+    face_frames() order), one launch of R1 that shades the six faces (a
+    gated-off face shades to no surface), then one launch of K5 that
+    composites them by exact ownership: (vertex, normal, valid) of the
+    camera grid in the volume frame. The JAX package's single-face switch,
+    cond chain and multiply-masks are TPU staging and have no
+    counterpart."""
     if spec is None:
         size, focal = params.raycast_face
         spec = RaySpec(size=int(size), focal=float(focal))
     prm = composite_params(cam2vol, params)
-    fields = [sweep_and_shade(tsdf, frame, prm[f, 9:12], params, spec, gates[f])
-              for f, frame in enumerate(face_frames())]
-    return resample_composite([t for t, _ in fields], [n for _, n in fields], prm, gates,
-                              intr, spec)
+    t_f, n_f, _ = face_fields(*sweep_faces(tsdf, prm, params, spec, gates), prm, spec)
+    return resample_composite(t_f.unbind(0), n_f.unbind(0), prm, gates, intr, spec)
 
 
 def to_camera(vertex: torch.Tensor, normal: torch.Tensor, valid: torch.Tensor, cam2vol: Pose):

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "kinfu_march_rays": [_P] * 9 + [_I] * 7 + [_F] + [_P] * 2,
     "kinfu_march_hier": [_P] * 9 + [_I] * 6 + [_F] * 4 + [_P] * 2,
     "kinfu_shift_volume": [_P] * 5 + [_I] * 3 + [_P] * 2,
+    "kinfu_face_fields": [_P] * 6 + [_F] * 2 + [_I] * 2 + [_P] * 2,
 }
 
 #: the loaded library and whether it is the checked build

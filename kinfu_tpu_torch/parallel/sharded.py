@@ -18,7 +18,7 @@ maps, frame count); every rank is given the whole frame. Per frame:
     global sample grid), one `pmin` composites the six faces' hit and back
     events over the ranks (an event found in two ranks' halos lies on the
     same global plane, so the composite is exact), and every rank shades
-    and resamples them (`face_fields`, K5). The march raycast
+    and resamples them (R1 `face_fields`, then K5). The march raycast
     (`raycast_mode="step"`, the CPU's default here as in JAX) marches each
     rank's t interval with a `HALO` of 3 rows (M1's slab form on the card,
     `volume/raycast.py::march_rays`), composites with a `pmin`,
@@ -120,9 +120,9 @@ def _composite_local(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
     """The warped raycast over the mesh, in the volume frame: (vertex,
     normal, valid) of the camera grid, identical on every rank. Each face's
     sweep (K4's shard form) runs on the halo-padded slab, one `pmin`
-    composites the six faces' (hit, back) over the ranks, and the shading
-    and K5's six-face composite run on every rank: the per-face composite
-    of sharded.py:237-270."""
+    composites the six faces' (hit, back) over the ranks, and R1's
+    six-face shading and K5's six-face composite run on every rank: the
+    per-face composite of sharded.py:237-270."""
     sd = mesh.shard_dim
     size, focal = params.raycast_face
     rspec = RaySpec(size=int(size), focal=float(focal))
@@ -137,10 +137,8 @@ def _composite_local(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,
             padded, frame, ray_params(prm[f, 9:12], vs_p, rspec, gates[f]), rspec,
             ray_shard(frame, padded.shape, Lg, Ll, off0, sd))))
     events = pmin(torch.stack(events))
-    fields = [face_fields(events[f, 0], events[f, 1], prm[f, 9:12], rspec)
-              for f in range(len(events))]
-    return resample_composite([t for t, _, _ in fields], [n for _, n, _ in fields], prm, gates,
-                              intr, rspec)
+    t_f, n_f, _ = face_fields([e[0] for e in events], [e[1] for e in events], prm, rspec)
+    return resample_composite(t_f.unbind(0), n_f.unbind(0), prm, gates, intr, rspec)
 
 
 def sharded_raycast_warped(tsdf_local: torch.Tensor, cam2vol: Pose, intr: Intrinsics,

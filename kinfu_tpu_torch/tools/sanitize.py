@@ -3,7 +3,8 @@
 Three parts:
 
 (a) On the card: every form of the five CUDA kernels (K1-K5), of the
-    march kernels (M1, M2) and of the shift (S1) runs in the bounds-checked
+    raycast's shading (R1), of the march kernels (M1, M2) and of the shift
+    (S1) runs in the bounds-checked
     build of csrc/ (`-DKINFU_CHECKED -lineinfo`, csrc/checked.cuh), in
     which every global load and store of a kernel traps on an index
     outside the array that the wrapper passed, and the launch then fails
@@ -23,7 +24,10 @@ Three parts:
     with the step's gates; K3 on each face, on a gated-off face whose stack
     K2 left unwritten, and on an interior Z slab and Y slab (the Y slab's
     +-x faces in the (2, 1, 0) frame); K4 on each face and on the
-    halo-padded Z and Y slabs; K5's six-face composite; M1 on the volume
+    halo-padded Z and Y slabs; R1 on the six faces' events with the step's
+    gates (the gated-off faces all misses), and on the ranks' reduced Z-slab
+    events [6, 2, F, F] as a rank passes them; K5's six-face composite; M1
+    on the volume
     and in its Z-slab form, and M2; S1 in place by one axis each way, by
     three axes, by none and past the far side; all on the volume and model
     maps of 3 frames of the fused orbit and on frame 3. Then the corner
@@ -303,9 +307,11 @@ def face_forms(vol, frame, T, params, intr):
     """K2 with every gate on and with the step's gates (the outputs of the
     gated faces); K3 on each face (every gate on), on a gated-off face of
     the step's gates, and on an interior Z and Y slab; K4 on each face and
-    on the halo-padded Z and Y slabs; K5's six-face composite. K3 updates
-    its volume in place: each of its launches starts from the volume it
-    was given."""
+    on the halo-padded Z and Y slabs; R1 on the six faces' events of the
+    step's gates, and on the Z slabs' reduced events [6, 2, F, F] (the
+    minimum of the ranks' K4 events, passed as views); K5's six-face
+    composite. K3 updates its volume in place: each of its launches starts
+    from the volume it was given."""
     from kinfu_tpu_torch.geometry.se3 import compose, inverse, pose_from_matrix
     from kinfu_tpu_torch.ops import face_integrate as fi
     from kinfu_tpu_torch.ops import face_raycast as fr
@@ -401,12 +407,29 @@ def face_forms(vol, frame, T, params, intr):
                        lambda grid, frm=frm, prm4=prm4, sh=sh:
                        fr.sweep_rays(padded, frm, prm4, rspec, sh))
 
+    # the minimum of the Z slabs' K4 events [6, 2, F, F], as `pmin` gives a rank
+    prm5, L = fr.composite_params(cam2vol, params, 0), vol.tsdf.shape[0]
+    reduced = None
+    for r in range(RANKS):
+        pad = padded_slab(vol.tsdf, 0, r, RANKS, HALO8)
+        ev = torch.stack([torch.stack(fr.sweep_rays(
+            pad, frm, fr.ray_params(prm5[f, 9:12], fw.primed_voxel_size(frm, vs), rspec, on),
+            rspec, ray_shard(frm, pad.shape, L, L // RANKS, r * (L // RANKS), 0)))
+            for f, frm in enumerate(fw.face_frames(0))])
+        reduced = ev if reduced is None else torch.minimum(reduced, ev)
+    del pad, ev
+
     prm = fr.composite_params(cam2vol, params)
-    fields = [fr.sweep_and_shade(vol.tsdf, frm, prm[k, 9:12], params, rspec, step_gates[k])
-              for k, frm in enumerate(frames)]
+    hits, backs = fr.sweep_faces(vol.tsdf, prm, params, rspec, step_gates)
+    yield Form(f"R1 six-face shading, gates {step_gates.int().tolist()}",
+               lambda grid: fr.face_fields(hits, backs, prm, rspec))
+    yield Form(f"R1 six-face shading of the Z slabs' reduced events {list(reduced.shape)}",
+               lambda grid: fr.face_fields([e[0] for e in reduced], [e[1] for e in reduced],
+                                           prm5, rspec))
+    t_f, n_f, _ = fr.face_fields(hits, backs, prm, rspec)
     yield Form(f"K5 six-face composite, gates {step_gates.int().tolist()}",
-               lambda grid: fr.resample_composite([t for t, _ in fields], [n for _, n in fields],
-                                                  prm, step_gates, intr, rspec))
+               lambda grid: fr.resample_composite(t_f.unbind(0), n_f.unbind(0), prm, step_gates,
+                                                  intr, rspec))
 
 
 def march_forms(tsdf, T, params, intr):
@@ -505,7 +528,7 @@ def orbit_state(scale: str, device):
 
 
 def all_forms(state, frame, T, params, intr):
-    """Every launch form of K1-K5, M1, M2 and S1 on the state's volume and
+    """Every launch form of K1-K5, R1, M1, M2 and S1 on the state's volume and
     model maps and on `frame` at pose T."""
     yield from icp_forms(state, frame[0], params, intr)
     yield from face_forms(state.vol, frame, T, params, intr)

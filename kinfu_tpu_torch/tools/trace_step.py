@@ -36,7 +36,7 @@ import torch
 #: are named "<key>_kernel"
 PORT_KERNELS = (("icp_normal_eqs", "K1 icp_normal_eqs"), ("build_face", "K2 build_face"),
                 ("face_integrate", "K3 face_integrate"), ("sweep_rays", "K4 sweep_rays"),
-                ("resample_face", "K5 resample_face"))
+                ("resample_face", "K5 resample_face"), ("face_fields", "R1 face_fields"))
 
 
 @dataclasses.dataclass

@@ -11,7 +11,7 @@ hand-written CUDA kernel with one thread per ray that loops until that
 ray's own stop: M1 (`march_rays`, csrc/march_rays.cu) and M2
 (`march_hier_rays`, csrc/march_hier.cu). A CPU tensor takes the twin, a
 CUDA tensor launches the kernel or raises, so "hier" and "step" read the
-device no more than "warped" (K4 + face shading + K5,
+device no more than "warped" (K4 + R1 + K5,
 `ops/face_raycast.py::raycast_warped`), which "auto" takes on the card
 wherever `warp_dims_ok`. Occupancy and shading stay plain PyTorch, built
 with device constants so that they make no host sync either.

@@ -6,7 +6,10 @@ face):
     plane) against the interpret-mode `_sweep_face_rays` (the TPU sweep
     with its occupancy pooling and slab/tile work lists): equal hits, and
     back events that differ only in where an outward exit is recorded;
-  - `face_fields` against `_face_fields` on the same events;
+  - `face_fields_plain` against `_face_fields` on the same events, and
+    R1's six-face entry `face_fields` against both, on the one-card
+    step's list of events, a rank's reduced events and a face whose rays
+    all miss;
   - K5 `resample_face_plain` against the interpret-mode `_resample_face`
     on the same face fields: equal;
   - K5 `resample_composite_plain` (all faces of a view in one pass) against
@@ -135,13 +138,59 @@ def test_face_fields_match_jax(faces):
     may sum in another order)."""
     for it in faces:
         ref = it["ref"]
-        t, n, ok = tfr.face_fields(torch.as_tensor(ref["hit"]), torch.as_tensor(ref["back"]),
-                                   torch.as_tensor(it["org_p"]), SPEC)
+        t, n, ok = tfr.face_fields_plain(torch.as_tensor(ref["hit"]),
+                                         torch.as_tensor(ref["back"]),
+                                         torch.as_tensor(it["org_p"]), SPEC)
         tag = f"{it['case']} {it['frame'].name}"
         np.testing.assert_array_equal(ok.numpy(), ref["ok"], err_msg=f"{tag} ok")
         np.testing.assert_array_equal(t.numpy(), ref["t_f"], err_msg=f"{tag} t")
         np.testing.assert_allclose(n.numpy(), ref["n_f"], rtol=0, atol=1e-6,
                                    err_msg=f"{tag} normal")
+
+
+#: R1's layouts: (the case, how its six faces' events reach the entry)
+SHADE_LAYOUTS = (("oblique", "list"), ("tilted", "events"), ("axis", "miss"))
+
+
+@pytest.mark.parametrize("case,layout", SHADE_LAYOUTS, ids=[lay for _, lay in SHADE_LAYOUTS])
+def test_face_fields_six_faces(faces, case, layout):
+    """R1's six-face entry on a case's six faces (JAX's events where the
+    face is needed, all misses as a gated-off sweep leaves them elsewhere)
+    equals `face_fields_plain` face by face, and JAX's `_face_fields` on
+    the needed faces (t and valid equal, normals within 1e-6). "list" is
+    the one-card step's six separate events, "events" a rank's reduced
+    [6, 2, F, F] events passed as views; "miss" holds the faces whose rays
+    all miss to t = 1e30, n = 0 and valid = False."""
+    its = {it["frame"].name: it for it in faces if it["case"] == case}
+    c2v = next(iter(its.values()))["c2v"]
+    prm = tfr.composite_params(c2v, PARAMS)
+    F = SPEC.size
+    miss = torch.full((F, F), 1e30)
+    hits = [torch.as_tensor(its[fr.name]["ref"]["hit"]) if fr.name in its else miss
+            for fr in face_frames()]
+    backs = [torch.as_tensor(its[fr.name]["ref"]["back"]) if fr.name in its else miss
+             for fr in face_frames()]
+    if layout == "events":
+        events = torch.stack([torch.stack([h, b]) for h, b in zip(hits, backs)])
+        hits, backs = [e[0] for e in events], [e[1] for e in events]
+    t, n, ok = tfr.face_fields(hits, backs, prm, SPEC)
+    assert t.shape == (6, F, F) and n.shape == (6, F, F, 3) and ok.shape == (6, F, F)
+    for f, fr in enumerate(face_frames()):
+        tag = f"{case} {layout} {fr.name}"
+        tp, np_, okp = tfr.face_fields_plain(hits[f], backs[f], prm[f, 9:12], SPEC)
+        assert torch.equal(t[f], tp) and torch.equal(n[f], np_) and torch.equal(ok[f], okp), tag
+        if fr.name in its:
+            ref = its[fr.name]["ref"]
+            np.testing.assert_array_equal(ok[f].numpy(), ref["ok"], err_msg=f"{tag} ok")
+            np.testing.assert_array_equal(t[f].numpy(), ref["t_f"], err_msg=f"{tag} t")
+            np.testing.assert_allclose(n[f].numpy(), ref["n_f"], rtol=0, atol=1e-6,
+                                       err_msg=f"{tag} normal")
+        else:
+            assert bool((t[f] == 1e30).all()) and not bool(n[f].any()), tag
+            assert not bool(ok[f].any()), tag
+    assert int(ok.sum()) > 1000, case
+    if layout == "miss":
+        assert len(its) < 6, "the case has no face whose rays all miss"
 
 
 def test_resample_face_plain_matches_jax(faces):
